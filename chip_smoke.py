@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one CUDA card.
+"""Smoke run of the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -7,7 +7,8 @@ From the root of a checkout, on a machine with an NVIDIA H100 and the CUDA
 toolkit, this
 
 1. prints the card's name and power limit (nvidia-smi) and builds the
-   hand-written kernels of ``src/repro_torch/kernels/fused/csrc`` with nvcc;
+   hand-written kernels of ``src/repro_torch/kernels/*/csrc`` with nvcc,
+   one process per source, all at once;
 2. holds each kernel against its plain PyTorch version on the card at the
    main path's shape classes (TF32 off; f32 conv/deconv max abs error
    <= 1e-4, SPPF bit-exact), timing kernel, plain version, a library
@@ -22,7 +23,23 @@ toolkit, this
    counters set to 0 just before, requires exactly 316 conv_block, 64
    deconv_block and 4 sppf_pyramid launches, and holds every output against
    the same model's ``run_all`` on the plain (``xla``) ops on the card
-   (atol 5e-3, rtol 1e-2).
+   (atol 5e-3, rtol 1e-2);
+5. holds the ``deconv2d`` kernel (``kernels/deconv/csrc``) against its plain
+   version at the generator's 8 up-sampling shape classes, a B=8 case and a
+   bf16 case (max abs error <= 1e-4 in f32, <= 5e-2 in bf16), timed as in 2;
+6. trains at full width: Pix2Pix (padded, ``deconv_backend="xla"``) 5
+   steps of ``Adam(2e-4, b1=0.5)`` with seeded dropout on
+   ``phantom_batches(1, ...)``, YOLOv8n 3 steps of ``AdamW(1e-3)`` on
+   ``detection_batches(2, ...)``; every loss finite, every trainable leaf
+   changed (but those whose gradient is exactly zero), BatchNorm's
+   ``moving_*`` unchanged; step 1 on the card matches the same step on the
+   CPU (losses and gradient norms within rtol 1e-4); ms per step and peak
+   memory;
+7. applies the surgery (padded -> cropping) with ``deconv_backend="pallas"``
+   and evaluates the trained generator on an 8-image batch through the
+   kernel: exactly 8 ``deconv2d`` launches, output within atol 1e-4 of the
+   padded ``xla`` generator, SSIM/PSNR printed; then checks and times each
+   of those 8 calls.
 
 It prints a ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
 line; any failure raises and exits non-zero. Without a CUDA device, or
@@ -32,6 +49,8 @@ result. ``--json PATH`` also writes every measured row to PATH.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import dataclasses
 import inspect
 import json
 import math
@@ -48,6 +67,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 FP32_OPS_SIMPLE = 33.5e12
+BF16_FLOPS = 989e12  # dense bf16 tensor-core rate: the peak for bf16 operands
 
 IMG, BASE = 256, 64  # the paper's full width: Pix2Pix 54,425,859 params, YOLOv8n
 DEVICE = "cuda"
@@ -59,6 +79,8 @@ REPLACES = {
     "deconv_block": "src/repro/kernels/fused/kernel.py:200",
     "sppf_pyramid": "src/repro/kernels/fused/kernel.py:169",
 }
+DECONV_SOURCE = "src/repro_torch/kernels/deconv/csrc/deconv2d.cu"
+DECONV_REPLACES = "src/repro/kernels/deconv/kernel.py:86"
 
 
 def cuda_ms(fn, reps=20, warm=3):
@@ -123,8 +145,11 @@ def bound(name, a, bias=True):
     the call has one), gamma/beta (when it normalises) and the output, each
     once, over the HBM rate; 2*Cin ops per real tap per output channel plus
     bias, norm (3 statistics + 4 apply) and act ops per output over the
-    fp32 FMA rate; for SPPF, one max per real window tap beyond the first
-    over the one-op fp32 rate."""
+    peak rate of the operands' type (fp32 FMA, or bf16 tensor cores); for
+    SPPF, one max per real window tap beyond the first over the one-op fp32
+    rate."""
+    import torch
+
     x = a["x"]
     B, H, W, C = x.shape
     esize = x.element_size()
@@ -137,7 +162,7 @@ def bound(name, a, bias=True):
         return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_SIMPLE * 1e3
     w = a["w"]
     k, cout = w.shape[0], w.shape[-1]
-    if name == "deconv_block":
+    if name in ("deconv_block", "deconv2d"):
         Ho, Wo, stride, pad, tr = 2 * H, 2 * W, 2, 1, True
     else:
         stride, pad, tr = a["stride"], a["padding"], False
@@ -145,12 +170,12 @@ def bound(name, a, bias=True):
     th, kh, ih = taps_1d(H, Ho, k, stride, pad, tr)
     tw, kw, iw = taps_1d(W, Wo, k, stride, pad, tr)
     out = B * Ho * Wo * cout
-    norm = a["norm"] != "none"
-    affine = cout * (int(bias) + 2 * int(norm))
-    nbytes = (esize * (B * ih * iw * C + out) + w.element_size() * kh * kw * C * cout
-              + a["gamma"].element_size() * affine)
-    ops = 2 * C * cout * B * th * tw + out * (int(bias) + (7 if norm else 0) + ACT_OPS[a["act"]])
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    norm = a.get("norm", "none") != "none"
+    affine = cout * (int(bias) + 2 * int(norm))  # float32 bias, gamma, beta
+    nbytes = esize * (B * ih * iw * C + out) + w.element_size() * kh * kw * C * cout + 4 * affine
+    ops = 2 * C * cout * B * th * tw + out * (int(bias) + (7 if norm else 0) + ACT_OPS[a.get("act", "none")])
+    peak = BF16_FLOPS if x.dtype == torch.bfloat16 else FP32_FLOPS
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
 
 
 def library_fn(name, a):
@@ -169,6 +194,10 @@ def library_fn(name, a):
             return torch.cat(outs, 1)
 
         return sppf
+    if name == "deconv2d":
+        w = a["w"].flip(0, 1).permute(2, 3, 0, 1).contiguous()
+        b = None if a["b"] is None else a["b"].to(x.dtype)
+        return lambda: F.conv_transpose2d(x, w, b, stride=2, padding=1)
     if name == "deconv_block":
         w = a["w"].flip(0, 1).permute(2, 3, 0, 1).contiguous()
 
@@ -201,18 +230,25 @@ def library_fn(name, a):
 class Bench:
     """Checks and times one kernel call against its plain version."""
 
-    def __init__(self, ops, ref):
-        self.ops, self.ref = ops, ref
-        self.sig = {n: inspect.signature(getattr(ops, n)) for n in REPLACES}
+    def __init__(self, ops, ref, deconv_ops, deconv_ref):
+        self.ops = ops
+        self.fns = {
+            "conv_block": (ops.conv_block, ref.conv_block_ref),
+            "deconv_block": (ops.deconv_block, ref.deconv_block_ref),
+            "sppf_pyramid": (ops.sppf_pyramid, ref.sppf_pyramid_ref),
+            "deconv2d": (deconv_ops.deconv2d, deconv_ref.deconv2d_ref),
+        }
+        self.sig = {n: inspect.signature(op) for n, (op, _) in self.fns.items()}
 
     def args(self, name, *args, **kw):
-        """The call's full keyword arguments, absent affine terms filled in
-        as the wrapper fills them, and whether the call passed a bias."""
+        """The call's full keyword arguments, absent affine terms of the
+        fused blocks filled in as their wrapper fills them, and whether the
+        call passed a bias."""
         a = self.sig[name].bind(*args, **kw)
         a.apply_defaults()
         a = dict(a.arguments)
         bias = a.get("b") is not None
-        if name != "sppf_pyramid":
+        if name in ("conv_block", "deconv_block"):
             a["b"], a["gamma"], a["beta"] = self.ops._affine(
                 a["x"], a["b"], a["gamma"], a["beta"], a["w"].shape[-1]
             )
@@ -221,13 +257,9 @@ class Bench:
     def run(self, name, a, bias):
         import torch
 
-        kernel = lambda: getattr(self.ops, name)(**a)  # noqa: E731
-        if name == "conv_block":
-            plain = lambda: self.ref.conv_block_ref(**a)  # noqa: E731
-        elif name == "deconv_block":
-            plain = lambda: self.ref.deconv_block_ref(**a)  # noqa: E731
-        else:
-            plain = lambda: self.ref.sppf_pyramid_ref(**a)  # noqa: E731
+        op, ref = self.fns[name]
+        kernel = lambda: op(**a)  # noqa: E731
+        plain = lambda: ref(**a)  # noqa: E731
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         if got.shape != want.shape or got.dtype != want.dtype:
@@ -235,7 +267,10 @@ class Bench:
         err = (got.float() - want.float()).abs().max().item()
         if not math.isfinite(err):
             raise AssertionError(f"{name}: non-finite output or error")
-        tol = 0.0 if name == "sppf_pyramid" else 1e-4
+        if name == "sppf_pyramid":
+            tol = 0.0
+        else:
+            tol = 5e-2 if a["x"].dtype == torch.bfloat16 else 1e-4
         if err > tol:
             raise AssertionError(f"{name} {tuple(a['x'].shape)}: max abs err {err:.3g} > {tol}")
         bytes_ms, ops_ms = bound(name, a, bias)
@@ -259,6 +294,8 @@ def describe(name, a, bias):
     x = tuple(a["x"].shape)
     if name == "sppf_pyramid":
         return f"{x} {str(a['x'].dtype)[6:]}"
+    if name == "deconv2d":
+        return f"{x}->{a['w'].shape[-1]}{' +b' if bias else ''} {str(a['x'].dtype)[6:]}"
     w = a["w"]
     conv = "" if name == "deconv_block" else f" k{w.shape[0]}s{a['stride']}p{a['padding']}"
     return f"{x}->{w.shape[-1]}{conv}{' +b' if bias else ''} {a['norm']}/{a['act']}"
@@ -303,6 +340,237 @@ def shape_classes(torch, dev):
     ]
 
 
+def deconv_classes(torch, dev):
+    """deconv2d's shape classes: the 8 up-sampling calls of one full-width
+    generator forward (B=1), one B=8 call and one bf16 call, on random
+    inputs."""
+    g = torch.Generator(dev).manual_seed(2)
+
+    def call(x, cout, bias=False, dtype=torch.float32):
+        t = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale  # noqa: E731
+        w = t(4, 4, x[-1], cout, scale=math.sqrt(2.0 / (16 * x[-1])))
+        return ("deconv2d", (t(*x).to(dtype), w.to(dtype)), {"b": 0.1 * t(cout) if bias else None})
+
+    return [
+        call((1, 1, 1, 512), 512),
+        call((1, 2, 2, 1024), 512),
+        call((1, 4, 4, 1024), 512),
+        call((1, 8, 8, 1024), 512),
+        call((1, 16, 16, 1024), 256),
+        call((1, 32, 32, 512), 128),
+        call((1, 64, 64, 256), 64),
+        call((1, 128, 128, 128), 3, bias=True),
+        call((8, 16, 16, 1024), 256),
+        call((1, 64, 64, 256), 64, dtype=torch.bfloat16),
+    ]
+
+
+def _tensors(torch, tree, dev):
+    """A numpy batch tree as tensors on ``dev``."""
+    from repro_torch.nn.module import tree_map
+
+    return tree_map(lambda a: torch.from_numpy(a).to(dev), tree)
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _changed(before, after):
+    """Leaf paths of a parameter tree whose value changed, and those that did not."""
+    from repro_torch.nn.module import tree_leaves
+
+    changed, same = [], []
+    for path, x, y in zip(_paths(before), tree_leaves(before), tree_leaves(after)):
+        (same if bool((x == y).all()) else changed).append(path)
+    return changed, same
+
+
+def train_phase(torch, smi, dev):
+    """Full-width training: Pix2Pix (padded, xla deconvs) and YOLOv8n. Step
+    1 on the card against the same step on the CPU (same init, same batch,
+    no dropout), then a few steps on the card. Returns the trained
+    Pix2Pix config and parameters and the phase's rows."""
+    from repro_torch.data import PhantomConfig, detection_batches, phantom_batches
+    from repro_torch.models import Pix2Pix, Pix2PixConfig, YOLOv8, YOLOv8Config
+    from repro_torch.nn.module import tree_leaves, tree_map
+    from repro_torch.train import SGD, Adam, AdamW, global_norm, make_pix2pix_train_step, make_yolo_train_step
+
+    cpu = torch.device("cpu")
+    rows = {}
+
+    def is_moving(path):
+        return "moving_" in path
+
+    def finite(metrics, what):
+        bad = {k: float(v) for k, v in metrics.items() if not math.isfinite(float(v))}
+        if bad:
+            raise AssertionError(f"{what}: non-finite {bad}")
+
+    def timed_steps(step, params, state, batches, extra=()):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b, *extra)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v) for k, v in m.items()})
+        return params, state, losses, times, torch.cuda.max_memory_allocated()
+
+    # ---- Pix2Pix: step 1 parity through SGD(lr=1, momentum=0) (delta = -grad)
+    cfg = Pix2PixConfig(img_size=IMG, base=BASE, deconv_mode="padded", deconv_backend="xla")
+    model = Pix2Pix(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(0))
+    batch_np = next(phantom_batches(1, PhantomConfig(IMG), seed=0))
+    sgd = SGD(lr=1.0, momentum=0.0)
+    grads, metrics = {}, {}
+    for key, d in (("cpu", cpu), ("card", dev)):
+        p = tree_map(lambda t: t.to(d), p_cpu)
+        st = {"g": sgd.init(p["generator"]), "d": sgd.init(p["discriminator"])}
+        new, _, m = make_pix2pix_train_step(model, sgd, sgd)(p, st, _tensors(torch, batch_np, d), None)
+        grads[key] = tree_map(lambda a, b: a - b, p, new)
+        metrics[key] = {k: float(v) for k, v in m.items()}
+    finite(metrics["card"], "pix2pix step 1")
+    norms = {k: {d: float(global_norm(grads[d][k])) for d in grads} for k in ("generator", "discriminator")}
+    for k in ("g_loss", "d_loss"):
+        if _rel(metrics["card"][k], metrics["cpu"][k]) > 1e-4:
+            raise AssertionError(f"pix2pix step 1 {k}: card {metrics['card'][k]} vs CPU {metrics['cpu'][k]}")
+    for k, v in norms.items():
+        if _rel(v["card"], v["cpu"]) > 1e-4:
+            raise AssertionError(f"pix2pix step 1 |grad {k}|: card {v['card']} vs CPU {v['cpu']}")
+    dead = {path for path, g in zip(_paths(p_cpu), tree_leaves(grads["card"])) if not bool(g.any())}
+    print(
+        f"pix2pix step 1, card vs CPU: g_loss {metrics['card']['g_loss']:.6f} / {metrics['cpu']['g_loss']:.6f}, "
+        f"d_loss {metrics['card']['d_loss']:.6f} / {metrics['cpu']['d_loss']:.6f}, |grad G| "
+        f"{norms['generator']['card']:.6f} / {norms['generator']['cpu']:.6f}, |grad D| "
+        f"{norms['discriminator']['card']:.6f} / {norms['discriminator']['cpu']:.6f} (rtol 1e-4)"
+    )
+    del grads
+
+    # ---- Pix2Pix: 5 Adam steps with seeded dropout
+    adam = Adam(lr=2e-4, b1=0.5)
+    p0 = tree_map(lambda t: t.to(dev), p_cpu)
+    st = {"g": adam.init(p0["generator"]), "d": adam.init(p0["discriminator"])}
+    data = phantom_batches(1, PhantomConfig(IMG), seed=0)
+    batches = [_tensors(torch, next(data), dev) for _ in range(5)]
+    drop = torch.Generator(dev).manual_seed(0)
+    params, _, losses, times, peak = timed_steps(
+        make_pix2pix_train_step(model, adam, adam), p0, st, batches, (drop,)
+    )
+    for i, m in enumerate(losses):
+        finite(m, f"pix2pix step {i + 1}")
+    changed, same = _changed(p0, params)
+    stuck = {path for path in same if not is_moving(path)}
+    moved = [path for path in changed if is_moving(path)]
+    if moved or stuck != {path for path in dead if not is_moving(path)}:
+        raise AssertionError(f"pix2pix: moving stats changed {moved}; unchanged trainable {sorted(stuck)}, zero-grad {sorted(dead)}")
+    rows["pix2pix"] = {"losses": losses, "ms": times, "peak_bytes": peak}
+    print(
+        f"pix2pix train (img {IMG}, base {BASE}, batch 1, Adam 2e-4): 5 steps finite, g_loss "
+        f"{losses[0]['g_loss']:.4f} -> {losses[-1]['g_loss']:.4f}; {len(changed)} leaves changed, "
+        f"moving stats unchanged, unchanged trainable = the zero-gradient leaves {sorted(stuck)}; "
+        f"ms/step {sum(times[1:]) / len(times[1:]):.2f} (steps 2-5; step 1 {times[0]:.2f}), "
+        f"peak {peak / 2**30:.3f} GiB | {smi}"
+    )
+
+    # ---- YOLOv8n: step 1 parity, then 3 AdamW steps
+    ycfg = YOLOv8Config(img_size=IMG)
+    ymodel = YOLOv8(ycfg)
+    y_cpu = ymodel.init(torch.Generator().manual_seed(1))
+    ydata = detection_batches(2, PhantomConfig(IMG, lesion_p=1.0), seed=2)
+    ybatches_np = [next(ydata) for _ in range(3)]
+    adamw = AdamW(1e-3)
+    ystep = make_yolo_train_step(ymodel, adamw)
+    ym = {}
+    for key, d in (("cpu", cpu), ("card", dev)):
+        p = tree_map(lambda t: t.to(d), y_cpu)
+        _, _, m = ystep(p, adamw.init(p), _tensors(torch, ybatches_np[0], d))
+        ym[key] = {k: float(v) for k, v in m.items()}
+    for k in ("loss", "grad_norm"):
+        if _rel(ym["card"][k], ym["cpu"][k]) > 1e-4:
+            raise AssertionError(f"yolo step 1 {k}: card {ym['card'][k]} vs CPU {ym['cpu'][k]}")
+    print(
+        f"yolov8n step 1, card vs CPU: loss {ym['card']['loss']:.6f} / {ym['cpu']['loss']:.6f}, grad_norm "
+        f"{ym['card']['grad_norm']:.6f} / {ym['cpu']['grad_norm']:.6f} (rtol 1e-4)"
+    )
+    y0 = tree_map(lambda t: t.to(dev), y_cpu)
+    yparams, _, ylosses, ytimes, ypeak = timed_steps(
+        ystep, y0, adamw.init(y0), [_tensors(torch, b, dev) for b in ybatches_np]
+    )
+    for i, m in enumerate(ylosses):
+        finite(m, f"yolo step {i + 1}")
+    changed, same = _changed(y0, yparams)
+    if [q for q in changed if is_moving(q)] or [q for q in same if not is_moving(q)]:
+        raise AssertionError(f"yolo: changed {changed}, unchanged {same}")
+    rows["yolov8n"] = {"losses": ylosses, "ms": ytimes, "peak_bytes": ypeak}
+    print(
+        f"yolov8n train (img {IMG}, batch 2, AdamW 1e-3): 3 steps finite, loss {ylosses[0]['loss']:.4f} -> "
+        f"{ylosses[-1]['loss']:.4f}; all {len(changed)} trainable leaves changed, moving stats unchanged; "
+        f"ms/step {sum(ytimes[1:]) / len(ytimes[1:]):.2f} (steps 2-3; step 1 {ytimes[0]:.2f}), "
+        f"peak {ypeak / 2**30:.3f} GiB | {smi}"
+    )
+    return cfg, params, rows
+
+
+def _paths(tree, path=""):
+    """Leaf paths in ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in _paths(tree[k], f"{path}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, v in enumerate(tree) for q in _paths(v, f"{path}.{i}")]
+    return [path]
+
+
+def eval_phase(torch, deconv_ops, cfg, params, dev):
+    """The paper's deployment: surgery (padded -> cropping) on the trained
+    weights, with the up-sampling on the deconv2d kernel, evaluated on an
+    8-image batch. Returns the kernel's launches in that forward, the calls
+    it made, and the metrics."""
+    from repro_torch.core import substitute_pix2pix
+    from repro_torch.data import PhantomConfig, phantom_batches
+    from repro_torch.models import Pix2Pix
+    from repro_torch.train import make_pix2pix_infer, psnr, ssim, to_uint8_range
+
+    cfg_c = dataclasses.replace(substitute_pix2pix(cfg, "cropping"), deconv_backend="pallas")
+    b = _tensors(torch, next(phantom_batches(8, PhantomConfig(IMG), seed=99)), dev)
+    infer_c = make_pix2pix_infer(Pix2Pix(cfg_c))
+    calls = []
+    real = deconv_ops.deconv2d
+
+    def recorder(*args, **kw):
+        calls.append(("deconv2d", args, kw))
+        return real(*args, **kw)
+
+    deconv_ops.deconv2d = recorder
+    try:
+        torch.cuda.synchronize()
+        deconv_ops.reset_launches()
+        fake_c = infer_c(params, b["src"])
+        torch.cuda.synchronize()
+        launches = deconv_ops.launches["deconv2d"]
+    finally:
+        deconv_ops.deconv2d = real
+    if launches != int(math.log2(IMG)):  # 7 up blocks + the final layer at img 256
+        raise AssertionError(f"deconv2d launched {launches} times in one generator forward, want {int(math.log2(IMG))}")
+    fake = make_pix2pix_infer(Pix2Pix(cfg))(params, b["src"])
+    if tuple(fake_c.shape) != (8, IMG, IMG, 3) or not bool(torch.isfinite(fake_c).all()):
+        raise AssertionError(f"surgery output: shape {tuple(fake_c.shape)} or non-finite values")
+    diff = (fake_c - fake).abs().max().item()
+    if diff > 1e-4:
+        raise AssertionError(f"cropping + deconv2d kernel vs padded xla: max |delta| {diff:.3g} > 1e-4")
+    real_u8, fake_u8 = to_uint8_range(b["dst"]), to_uint8_range(fake_c)
+    metrics = {"ssim": float(ssim(real_u8, fake_u8).mean()) * 100, "psnr": float(psnr(real_u8, fake_u8).mean()),
+               "max_delta_vs_padded_xla": diff, "deconv2d_launches": launches}
+    print(
+        f"surgery + eval (cropping, deconv_backend='pallas', 8 images): deconv2d launches {launches}, "
+        f"max |cropping+kernel - padded xla| = {diff:.2e} (atol 1e-4); SSIM {metrics['ssim']:.2f}, "
+        f"PSNR {metrics['psnr']:.2f} dB (5 steps of training: values only)"
+    )
+    return launches, calls, metrics
+
+
 def capture_main_path_calls(torch, ops, build_server, dev):
     """Every kernel call of one Pix2Pix and one YOLOv8 frame on the
     pallas_fused path: the model ops bind ``ops``' functions when the
@@ -345,10 +613,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "fused" / "csrc").is_dir():
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "deconv" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.deconv import kernel as deconv_kernel
+    from repro_torch.kernels.deconv import ops as deconv_ops
+    from repro_torch.kernels.deconv import ref as deconv_ref
     from repro_torch.kernels.fused import kernel, ops, ref
     from repro_torch.serve import build_server
 
@@ -363,14 +634,19 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | {torch.cuda.get_device_name(0)}")
-    built = kernel.build()
-    print(f"build: {built['seconds']:.1f} s nvcc ({Path(built['path']).name})")
-    for line in built["log"].splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print("  ptxas:", line.split(":", 1)[-1].strip())
+    t_build = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, at once
+        builds = list(pool.map(lambda k: k.build(), (kernel, deconv_kernel)))
+    print(f"build: {time.perf_counter() - t_build:.1f} s for both sources")
+    for built in builds:
+        print(f"  {Path(built['path']).name}: {built['seconds']:.1f} s nvcc")
+        for line in built["log"].splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print("  ptxas:", line.split(":", 1)[-1].strip())
     kernel.library()
+    deconv_kernel.library()
 
-    bench = Bench(ops, ref)
+    bench = Bench(ops, ref, deconv_ops, deconv_ref)
     rows = []
     print("-- kernels vs plain versions, main-path shape classes (ms on the card, CUDA events)")
     for name, a_, kw in shape_classes(torch, dev):
@@ -477,6 +753,38 @@ def main() -> int:
     print(f"outputs: {len(bundle.streams)} streams x 4 frames finite, shapes right, "
           f"max |served - xla run_all| = {worst:.2e} (atol 5e-3, rtol 1e-2); warm-up completions {warm_counts}")
 
+    print("-- deconv2d vs its plain version, shape classes (ms on the card, CUDA events)")
+    deconv_err = 0.0
+    for name, a_, kw in deconv_classes(torch, dev):
+        a, bias = bench.args(name, *a_, **kw)
+        r = bench.run(name, a, bias)
+        deconv_err = max(deconv_err, r["max_abs_err"])
+        rows.append({"phase": "deconv2d classes", "kernel": name, "shape": describe(name, a, bias), **r})
+        print(
+            f"{name:9s} {describe(name, a, bias):34s} max_err={r['max_abs_err']:.2e} kernel_ms={r['ms']:.4f} "
+            f"(host {r['host_ms']:.4f}) plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.5f} ({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'})"
+        )
+
+    print(f"-- training at full width (img {IMG}, base {BASE}), TF32 off")
+    cfg, trained, train_rows = train_phase(torch, smi, dev)
+
+    print("-- main path: surgery + evaluation through the deconv2d kernel")
+    deconv_launches, deconv_calls, eval_metrics = eval_phase(torch, deconv_ops, cfg, trained, dev)
+    deconv_tot = dict.fromkeys(fields, 0.0)
+    for name, a_, kw in deconv_calls:
+        a, bias = bench.args(name, *a_, **kw)
+        r = bench.run(name, a, bias)
+        deconv_err = max(deconv_err, r["max_abs_err"])
+        rows.append({"phase": "eval", "kernel": name, "shape": describe(name, a, bias), **r})
+        for f in fields:
+            deconv_tot[f] += r[f]
+    print(
+        f"deconv2d per generator forward (8 calls, batch 8): kernel {deconv_tot['ms']:.4f} ms on the card "
+        f"(host-issued {deconv_tot['host_ms']:.4f}), plain {deconv_tot['plain_ms']:.4f}, library "
+        f"{deconv_tot['library_ms']:.4f}, bound {deconv_tot['bound_ms']:.5f} | {smi}"
+    )
+
     kernels = []
     for n in REPLACES:
         tot = totals[n]
@@ -487,11 +795,19 @@ def main() -> int:
             "bound_by": "operations" if tot["ops_ms"] > tot["bytes_ms"] else "bytes",
             "library_ms": tot["library_ms"],
         })
+    kernels.append({
+        "name": "deconv2d", "route": "cuda", "source": DECONV_SOURCE, "replaces": DECONV_REPLACES,
+        "launches": deconv_launches, "max_abs_err": deconv_err, "ms": deconv_tot["ms"],
+        "plain_ms": deconv_tot["plain_ms"], "bound_ms": deconv_tot["bound_ms"],
+        "bound_by": "operations" if deconv_tot["ops_ms"] > deconv_tot["bytes_ms"] else "bytes",
+        "library_ms": deconv_tot["library_ms"],
+    })
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
-            {"card": smi, "rows": rows, "kernels": kernels, "report": rep,
-             "per_frame_pair": pair, "seconds": time.perf_counter() - t_start}, indent=1, default=str))
+            {"card": smi, "rows": rows, "kernels": kernels, "report": rep, "per_frame_pair": pair,
+             "train": train_rows, "eval": eval_metrics, "deconv2d_per_forward": deconv_tot,
+             "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

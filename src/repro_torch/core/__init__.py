@@ -4,3 +4,4 @@ from .engine import EngineSpec, jetson_orin_engines
 from .graph import LayerGraph, LayerMeta
 from .pipeline import StagedModel, pix2pix_staged, yolo_staged
 from .plan_ir import PlanIR, PlanSegment
+from .surgery import RULES, SurgeryReport, apply_surgery, substitute_pix2pix

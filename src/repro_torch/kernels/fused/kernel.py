@@ -1,10 +1,9 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/fused_blocks.cu``.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use (``build()``), under ``build/`` next
-to this file (listed in ``.gitignore``), and loaded with ``ctypes``.
-Nothing here runs when the module is imported, so the CPU tests can import
-it on a machine without ``nvcc``.
+with a plain C interface at first use (``build()``, through
+``kernels._build``), under ``build/`` next to this file, and loaded with
+``ctypes``.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, allocate outputs and scratch with ``torch.empty``, launch on
@@ -15,14 +14,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import subprocess
-import time
 from pathlib import Path
 
 import torch
+
+from .. import _build
+from .._build import require
 
 _SRC = Path(__file__).parent / "csrc" / "fused_blocks.cu"
 _BUILD_DIR = Path(__file__).parent / "build"
@@ -37,40 +35,15 @@ _TARGET_BLOCKS = 2 * 132
 _SPPF_SMEM = 48 * 1024
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME); nvcc is needed to build the kernels")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
 def build() -> dict:
-    """Compile the kernels if this source has not been built yet. Returns
-    ``{"path", "seconds", "log"}``; ``log`` holds ptxas' register and
-    shared-memory report of a fresh build (empty when the library was
-    already there)."""
-    src = _SRC.read_bytes()
-    so = _BUILD_DIR / f"libfused_blocks_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if so.exists():
-        return {"path": str(so), "seconds": 0.0, "log": ""}
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(_SRC),
-    ]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-8000:]}")
-    os.replace(tmp, so)  # atomic: no process ever loads a half-written library
-    return {"path": str(so), "seconds": time.perf_counter() - t0, "log": r.stderr}
+    """Compile the kernels if this source has not been built yet (see
+    ``kernels._build.build``)."""
+    return _build.build(_SRC, _BUILD_DIR)
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()["path"])
+    lib = _build.load(_SRC, _BUILD_DIR)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fused_conv_block_f32.argtypes = [p] * 8 + [i] * 12 + [f] + [i] * 3 + [p]
     lib.fused_conv_block_f32.restype = i
@@ -87,22 +60,14 @@ def _check(lib, err: int, what: str):
         raise RuntimeError(f"{what} launch failed: {lib.fused_error_string(err).decode()} ({err})")
 
 
-def _require(t: torch.Tensor, name: str, dtype, shape=None):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def gemm_split(rows: int, cout: int, k_total: int, phases: int = 1) -> tuple[int, int]:
-    """``(splitk, k_tiles_per_split)`` for the conv GEMM: layers with too few
-    output tiles to fill the card (the deep 1x1/2x2 Pix2Pix layers) split
-    K over more blocks, each split at least 8 K tiles deep."""
-    tiles = math.ceil(rows / _BM) * math.ceil(cout / _BN) * phases
+def gemm_split(
+    rows: int, cout: int, k_total: int, phases: int = 1, bm: int = _BM, bn: int = _BN
+) -> tuple[int, int]:
+    """``(splitk, k_tiles_per_split)`` for a conv GEMM of ``bm x bn`` output
+    tiles and ``_BK``-deep K tiles: layers with too few output tiles to
+    fill the card (the deep 1x1/2x2 Pix2Pix layers) split K over more
+    blocks, each split at least 8 K tiles deep."""
+    tiles = math.ceil(rows / bm) * math.ceil(cout / bn) * phases
     nkt = math.ceil(k_total / _BK)
     split = 1
     if tiles < _TARGET_BLOCKS:
@@ -125,10 +90,10 @@ def conv_block_cuda(x, w, b, gamma, beta, *, stride, padding, norm, groups, act,
     (``deconv=True``) + bias + norm + act kernel on float32 CUDA tensors."""
     B, H, W, Cin = x.shape
     k, Cout = w.shape[0], w.shape[-1]
-    _require(x, "x", torch.float32)
-    _require(w, "w", torch.float32, (k, k, Cin, Cout))
+    require(x, "x", torch.float32)
+    require(w, "w", torch.float32, (k, k, Cin, Cout))
     for name, t in (("b", b), ("gamma", gamma), ("beta", beta)):
-        _require(t, name, torch.float32, (Cout,))
+        require(t, name, torch.float32, (Cout,))
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if w.device != x.device:
@@ -192,7 +157,7 @@ def sppf_pyramid_cuda(x, *, window, reps):
     """Launch the SPPF pool-pyramid kernel on a float32/bfloat16 CUDA tensor."""
     if x.dtype not in _SPPF_ENTRY:
         raise TypeError(f"sppf_pyramid takes float32 or bfloat16, got {x.dtype}")
-    _require(x, "x", x.dtype)
+    require(x, "x", x.dtype)
     B, H, W, C = x.shape
     ct = sppf_channel_tile(H, W, C)
     out = torch.empty((B, H, W, (reps + 1) * C), dtype=x.dtype, device=x.device)

@@ -5,12 +5,14 @@ the call raises: there is no fallback on the card).
 Signatures follow ``repro.kernels.fused.ops``. The kernels take batch
 statistics over the whole batch, so B > 1 batch norm is exact in the
 kernel too. ``launches`` counts, per function, the calls that launched the
-CUDA kernel — the proof that a run went through it.
+CUDA kernel — the proof that a run went through it. Every function refuses to
+run where autograd would need its gradient (``kernels.refuse_grad``).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import refuse_grad
 from .kernel import ACTS, NORMS, conv_block_cuda, sppf_pyramid_cuda
 from .ref import conv_block_ref, deconv_block_ref, sppf_pyramid_ref
 
@@ -62,6 +64,7 @@ def conv_block(
     eps: float = 1e-5,
 ):
     """Fused conv(+bias)+norm+act: (B, H, W, Cin) -> (B, Ho, Wo, Cout)."""
+    refuse_grad("conv_block", x, w, b, gamma, beta)
     _validate(x, w, norm, groups, act)
     b, gamma, beta = _affine(x, b, gamma, beta, w.shape[-1])
     if not _on_card(x, "conv_block"):
@@ -89,6 +92,7 @@ def deconv_block(
     eps: float = 1e-5,
 ):
     """Fused k=4/s=2 deconv + crop (+bias) + norm + act: -> (B, 2H, 2W, Cout)."""
+    refuse_grad("deconv_block", x, w, b, gamma, beta)
     _validate(x, w, norm, groups, act)
     if w.shape[0] != 4:
         raise ValueError(f"deconv_block is specialized to k=4, got {tuple(w.shape)}")
@@ -106,6 +110,7 @@ def deconv_block(
 def sppf_pyramid(x, window: int = 5, reps: int = 3):
     """Fused SPPF pool pyramid + concat: (B, H, W, C) -> (B, H, W, (reps+1)*C).
     Max/concat only: bit-exact against the plain version at any batch."""
+    refuse_grad("sppf_pyramid", x)
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"want contiguous NHWC x, got shape {tuple(x.shape)}")
     if not _on_card(x, "sppf_pyramid"):

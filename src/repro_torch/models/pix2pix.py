@@ -1,6 +1,5 @@
-"""Pix2Pix (Isola et al., CVPR'17) U-Net generator, following the TF
-tutorial architecture the paper uses ([27], Fig. 5); the PatchGAN
-discriminator comes with the training port:
+"""Pix2Pix (Isola et al., CVPR'17) — U-Net generator + PatchGAN discriminator,
+following the TF tutorial architecture the paper uses ([27], Fig. 5):
 8 downsample blocks / 7 upsample blocks + final deconv, generator params
 54,425,859 for 3-channel I/O (matches paper Table II exactly).
 
@@ -32,6 +31,7 @@ from ..nn import (
     Module,
     leaky_relu,
 )
+from ..kernels.deconv import ops as deconv_ops
 
 DOWN_CHANNELS = (64, 128, 256, 512, 512, 512, 512, 512)
 UP_CHANNELS = (512, 512, 512, 512, 256, 128, 64)
@@ -86,8 +86,9 @@ class Pix2PixConfig:
 class UpBlockDeconv(Module):
     """One upsampling stage in the configured deconv mode.
 
-    ``backend="pallas"`` (the standalone phase-decomposed deconv kernel) is
-    not ported yet and raises."""
+    ``backend="pallas"`` routes padded/cropping modes through the
+    hand-written deconv kernel (``kernels.deconv``) — one op, crop folded
+    into its indexing (the plain version on CPU tensors)."""
 
     c_in: int
     c_out: int
@@ -104,10 +105,8 @@ class UpBlockDeconv(Module):
 
     def __call__(self, p, x):
         if self.backend == "pallas" and self.mode in ("padded", "cropping"):
-            raise NotImplementedError(
-                'deconv_backend="pallas" needs the deconv2d kernel port '
-                "(kernels/deconv, queued in ROADMAP.md); use deconv_backend=\"xla\""
-            )
+            b = p["deconv"].get("b") if self.use_bias else None
+            return deconv_ops.deconv2d(x, p["deconv"]["w"], b=b, stride=2, padding=1)
         if self.mode == "padded":
             return ConvTranspose2D(self.c_in, self.c_out, 4, 2, padding=1, use_bias=self.use_bias)(p["deconv"], x)
         y = ConvTranspose2D(self.c_in, self.c_out, 4, 2, padding=0, use_bias=self.use_bias)(p["deconv"], x)
@@ -138,11 +137,10 @@ class Pix2PixGenerator(Module):
         final = UpBlockDeconv(c_prev, c.out_channels, c.deconv_mode, use_bias=True, backend=c.deconv_backend)
         return {"downs": downs, "ups": ups, "final": final}
 
-    def __call__(self, p, x, train=False):
-        """Inference forward. ``train=True`` (dropout) comes with the
-        training slice of the port."""
-        if train:
-            raise NotImplementedError("training mode comes with the training port (ROADMAP.md)")
+    def __call__(self, p, x, generator=None, train=False):
+        """``train=True`` with a ``torch.Generator`` (on x's device) applies
+        the dropout of up blocks 0-2, drawn from ``generator``; the JAX
+        package draws it from its ``rng`` key, so the two masks differ."""
         c = self.cfg
         x = x.to(c.act_dtype)
         skips = []
@@ -158,6 +156,10 @@ class Pix2PixGenerator(Module):
         for i, ch in enumerate(c.up_channels()):
             x = UpBlockDeconv(c_prev, ch, c.deconv_mode, backend=c.deconv_backend)(p["ups"][i]["up"], x)
             x = c.norm2d(ch)(p["ups"][i]["bn"], x)
+            if train and i < 3 and generator is not None:
+                keep = 1.0 - c.dropout_rate
+                mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+                x = torch.where(mask, x / keep, 0.0).to(x.dtype)
             x = F.relu(x)
             x = torch.cat([x, skips[i]], dim=-1)
             c_prev = ch * 2
@@ -456,3 +458,59 @@ def generator_ops(cfg: Pix2PixConfig, impl: str = "xla"):
             fold(f"up{i}.deconv", mk_up_fused(i, ch), *folded)
         fold("final.deconv", mk_final_fused(), *[f"final.{t}" for t in crop], "tanh")
     return ops
+
+
+@dataclasses.dataclass(frozen=True)
+class Pix2PixDiscriminator(Module):
+    """70x70 PatchGAN on concat(condition, image) — 6 input channels."""
+
+    cfg: Pix2PixConfig
+
+    def specs(self):
+        c = self.cfg
+        ci = c.in_channels + c.out_channels
+        return {
+            "c1": Conv2D(ci, 64, 4, 2, padding=1, use_bias=False),
+            "c2": Conv2D(64, 128, 4, 2, padding=1, use_bias=False),
+            "bn2": BatchNorm2D(128),
+            "c3": Conv2D(128, 256, 4, 2, padding=1, use_bias=False),
+            "bn3": BatchNorm2D(256),
+            "c4": Conv2D(256, 512, 4, 1, padding=0, use_bias=False),  # zero-pad then VALID
+            "bn4": BatchNorm2D(512),
+            "c5": Conv2D(512, 1, 4, 1, padding=0, use_bias=True),
+        }
+
+    def __call__(self, p, x, y):
+        c = self.cfg
+        h = torch.cat([x, y], dim=-1).to(c.act_dtype)
+        ci = c.in_channels + c.out_channels
+        h = leaky_relu(Conv2D(ci, 64, 4, 2, padding=1, use_bias=False)(p["c1"], h))
+        h = Conv2D(64, 128, 4, 2, padding=1, use_bias=False)(p["c2"], h)
+        h = leaky_relu(BatchNorm2D(128)(p["bn2"], h))
+        h = Conv2D(128, 256, 4, 2, padding=1, use_bias=False)(p["c3"], h)
+        h = leaky_relu(BatchNorm2D(256)(p["bn3"], h))
+        h = F.pad(h, (0, 0, 1, 1, 1, 1))
+        h = Conv2D(256, 512, 4, 1, padding=0, use_bias=False)(p["c4"], h)
+        h = leaky_relu(BatchNorm2D(512)(p["bn4"], h))
+        h = F.pad(h, (0, 0, 1, 1, 1, 1))
+        return Conv2D(512, 1, 4, 1, padding=0, use_bias=True)(p["c5"], h)
+
+
+@dataclasses.dataclass(frozen=True)
+class Pix2Pix(Module):
+    cfg: Pix2PixConfig
+
+    def specs(self):
+        return {
+            "generator": Pix2PixGenerator(self.cfg),
+            "discriminator": Pix2PixDiscriminator(self.cfg),
+        }
+
+    def generate(self, p, x, generator=None, train=False):
+        return Pix2PixGenerator(self.cfg)(p["generator"], x, generator=generator, train=train)
+
+    def discriminate(self, p, x, y):
+        return Pix2PixDiscriminator(self.cfg)(p["discriminator"], x, y)
+
+    def layer_graph(self, batch: int = 1, dtype_bytes: int = 2) -> LayerGraph:
+        return Pix2PixGenerator(self.cfg).layer_graph(batch, dtype_bytes)

@@ -88,7 +88,7 @@ class Module:
         sorted-key order) and place it on ``device`` (default: the
         generator's device)."""
         tree = _init_tree(self.specs(), generator, dtype)
-        return tree if device is None else _tree_to(tree, torch.device(device))
+        return tree if device is None else tree_map(lambda t: t.to(torch.device(device)), tree)
 
     def __call__(self, params, *args, **kwargs):  # pragma: no cover - abstract
         raise NotImplementedError
@@ -106,29 +106,41 @@ def _init_tree(spec: Any, g: torch.Generator, dtype) -> Any:
     raise TypeError(f"bad spec: {type(spec)}")
 
 
-def _tree_to(tree: Any, device: torch.device) -> Any:
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of dict/list parameter trees of one structure."""
     if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
-        return [_tree_to(v, device) for v in tree]
-    raise TypeError(f"bad param tree node: {type(tree)}")
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
-def _leaves(tree: Any):
+def tree_leaves(tree) -> list:
+    """The leaves in ``jax.tree.leaves`` order (dict keys sorted)."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure holding ``leaves`` (in ``tree_leaves`` order)."""
+    it = iter(leaves)
+
+    def fill(node):
+        if isinstance(node, dict):
+            filled = {k: fill(node[k]) for k in sorted(node)}
+            return {k: filled[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(fill(v) for v in node)
+        return next(it)
+
+    return fill(tree)
 
 
 def param_count(params) -> int:
-    return sum(int(x.numel()) for x in _leaves(params))
+    return sum(int(x.numel()) for x in tree_leaves(params))
 
 
 def from_jax(tree: Any, device=None) -> Any:

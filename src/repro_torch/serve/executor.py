@@ -76,6 +76,7 @@ import torch
 from ..core.pipeline import StagedModel, TickLog
 from ..core.plan_ir import PlanIR, PlanSegment, ir_from_routes
 from ..core.scheduler import NModelPlan
+from ..nn.module import tree_leaves, tree_map
 from .batching import BatchConfig
 from .metrics import TickStats
 from .streams import FrameQueue, StreamSpec
@@ -157,22 +158,6 @@ class TensorStruct:
 # A segment state is a tree of dicts, lists and tuples with tensor leaves.
 
 
-def _tree_map(fn, tree, *rest):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, *xs) for xs in zip(tree, *rest))
-    return fn(tree, *rest)
-
-
-def _tree_leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in _tree_leaves(v)]
-    return [tree]
-
-
 def _tree_def(tree):
     """Hashable structure of a tree, leaves elided."""
     if isinstance(tree, dict):
@@ -184,7 +169,7 @@ def _tree_def(tree):
 
 def _leading(state) -> int:
     """Leading-axis extent of a state tree (the executed batch bucket)."""
-    leaves = _tree_leaves(state)
+    leaves = tree_leaves(state)
     if not leaves:
         return 1
     shape = leaves[0].shape
@@ -192,7 +177,7 @@ def _leading(state) -> int:
 
 
 def _param_device(model: StagedModel) -> torch.device:
-    leaves = _tree_leaves(model.params)
+    leaves = tree_leaves(model.params)
     return leaves[0].device if leaves else torch.device("cpu")
 
 
@@ -414,7 +399,7 @@ class StreamExecutor:
             for _, struct in self._state_structs[mi]:
                 for bstruct in self._warm_structs(mi, struct):
                     bucket = _leading(bstruct)
-                    state = _tree_map(
+                    state = tree_map(
                         lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device), bstruct
                     )
                     for seg in segs:
@@ -441,7 +426,7 @@ class StreamExecutor:
                 if b == 1:
                     continue
                 out.append(
-                    _tree_map(
+                    tree_map(
                         lambda s, b=b: TensorStruct((b,) + tuple(s.shape[1:]), s.dtype), struct
                     )
                 )
@@ -525,7 +510,7 @@ class StreamExecutor:
                 stream.wait_event(flight.ready)
             state = self.place_fns[eng](flight.state)
             if stream is not None:
-                for t in _tree_leaves(state):
+                for t in tree_leaves(state):
                     t.record_stream(stream)
             t1 = time.perf_counter()
             self._charge_wait(eng, 1, t1 - t0)
@@ -588,7 +573,7 @@ class StreamExecutor:
         if self._engine_streams is not None:
             # the caller reads the outputs on its own stream from here on
             caller = torch.cuda.current_stream(_param_device(model))
-            for t in _tree_leaves(out):
+            for t in tree_leaves(out):
                 t.record_stream(caller)
         now = time.perf_counter()
         valid = flight.valid or sum(m.size for m in flight.members)
@@ -610,7 +595,7 @@ class StreamExecutor:
             off, sliced = 0, []
             for m in flight.members:
                 o = off
-                sliced.append(_tree_map(lambda a, o=o, n=m.size: a[o : o + n], out))
+                sliced.append(tree_map(lambda a, o=o, n=m.size: a[o : o + n], out))
                 off += m.size
         for m, o in zip(flight.members, sliced):
             name = self.streams[m.stream_index].name
@@ -630,8 +615,8 @@ class StreamExecutor:
             )
 
     def _note_state_struct(self, mi: int, state):
-        struct = _tree_map(lambda x: TensorStruct(tuple(x.shape), x.dtype), state)
-        key = (_tree_def(struct), tuple((s.shape, s.dtype) for s in _tree_leaves(struct)))
+        struct = tree_map(lambda x: TensorStruct(tuple(x.shape), x.dtype), state)
+        key = (_tree_def(struct), tuple((s.shape, s.dtype) for s in tree_leaves(struct)))
         known = self._state_structs[mi]
         if key not in [k for k, _ in known]:
             known.append((key, struct))
@@ -766,14 +751,14 @@ class StreamExecutor:
         clean = [(m, s) for m, s in zip(members, states) if m.degrade == 0]
         shed = [(m, s) for m, s in zip(members, states) if m.degrade > 0]
         if self.merge_batches[mi] and len(clean) > 1:
-            merged = _tree_map(lambda *xs: torch.cat(xs, dim=0), *(s for _, s in clean))
+            merged = tree_map(lambda *xs: torch.cat(xs, dim=0), *(s for _, s in clean))
             total = sum(m.size for m, _ in clean)
             bucket = bc.bucket_for(total) if coalesce else total
             if bucket > total:
                 # pad to the compiled bucket with zero lanes; _complete
                 # slices members out of [0, total) so the pads are never
                 # observable (bit-exact vs per-frame execution)
-                merged = _tree_map(
+                merged = tree_map(
                     lambda a: torch.cat(
                         [
                             a,

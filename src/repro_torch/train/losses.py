@@ -1,0 +1,70 @@
+"""Losses: Pix2Pix GAN objectives and the simplified detection loss.
+
+The LM cross-entropies (``cross_entropy``, ``chunked_cross_entropy``) come
+with the LM model zoo.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def bce_with_logits(logits, targets):
+    logits = logits.float()
+    return torch.mean(
+        torch.clamp_min(logits, 0.0) - logits * targets + torch.log1p(torch.exp(-torch.abs(logits)))
+    )
+
+
+def pix2pix_g_loss(disc_fake_logits, fake, real, lambda_l1: float = 100.0):
+    """Generator loss: BCE(D(x, G(x)), 1) + lambda * L1(G(x), y) (paper §V.A.1)."""
+    adv = bce_with_logits(disc_fake_logits, torch.ones_like(disc_fake_logits))
+    l1 = torch.mean(torch.abs(fake.float() - real.float()))
+    return adv + lambda_l1 * l1, {"g_adv": adv, "g_l1": l1}
+
+
+def pix2pix_d_loss(disc_real_logits, disc_fake_logits):
+    real = bce_with_logits(disc_real_logits, torch.ones_like(disc_real_logits))
+    fake = bce_with_logits(disc_fake_logits, torch.zeros_like(disc_fake_logits))
+    return real + fake, {"d_real": real, "d_fake": fake}
+
+
+def yolo_loss(preds: dict, targets: dict, n_classes: int, reg_max: int = 16):
+    """Simplified anchor-free detection loss on grid-assigned targets.
+
+    targets per scale: {"cls": (B,H,W) int (-1 = background),
+                        "box": (B,H,W,4) normalized l,t,r,b distances}.
+    BCE on class logits + DFL-style CE on the discretized box distances
+    for positive cells. (The paper consumes only detector throughput; this
+    loss exists so the end-to-end training path is runnable.)
+    """
+    total = 0.0
+    n_pos_total = 0.0
+    for scale in ("p3", "p4", "p5"):
+        p = preds[scale].float()
+        box_logits = p[..., : 4 * reg_max]
+        cls_logits = p[..., 4 * reg_max :]
+        t = targets[scale]
+        pos = (t["cls"] >= 0).float()
+        onehot = F.one_hot(t["cls"].clamp_min(0).long(), n_classes).float() * pos[..., None]
+        cls_bce = (
+            torch.clamp_min(cls_logits, 0.0)
+            - cls_logits * onehot
+            + torch.log1p(torch.exp(-torch.abs(cls_logits)))
+        )
+        total = total + torch.sum(cls_bce) / cls_bce.numel()
+        # DFL: each of 4 sides as distribution over reg_max bins
+        B, H, W, _ = box_logits.shape
+        bl = box_logits.reshape(B, H, W, 4, reg_max)
+        tgt = torch.clamp(t["box"].float() * (reg_max - 1), 0, reg_max - 1)
+        lo = torch.floor(tgt).long()
+        hi = torch.clamp_max(lo + 1, reg_max - 1)
+        w_hi = tgt - lo
+        logp = F.log_softmax(bl, dim=-1)
+        nll = -(
+            (1 - w_hi) * torch.gather(logp, -1, lo[..., None])[..., 0]
+            + w_hi * torch.gather(logp, -1, hi[..., None])[..., 0]
+        )
+        total = total + torch.sum(nll * pos[..., None]) / torch.clamp_min(torch.sum(pos) * 4, 1.0)
+        n_pos_total = n_pos_total + torch.sum(pos)
+    return total, {"n_pos": n_pos_total}

@@ -1,0 +1,155 @@
+"""Optimizers as pure functions over the port's parameter trees.
+
+``init(params) -> state`` and ``update(grads, state, params) -> (params,
+state, info)``, as in the JAX package: AdamW with fp32 moments, global-norm
+clipping (1.0 by default) and schedule support, Adam, and SGD. States are
+plain trees beside the params. The step count and the schedule's learning
+rate are 0-d CPU tensors (int32 and float32, as JAX's), so an update on the
+card never waits for the host. Updates run under ``torch.no_grad()`` and
+return new tensors; nothing is updated in place.
+
+(``abstract_state`` comes with the distributed stack.)
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+from ..nn.module import tree_leaves, tree_map, tree_unflatten
+
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+
+def constant_lr(lr: float) -> Schedule:
+    return lambda step: torch.tensor(lr, dtype=torch.float32)
+
+
+def warmup_cosine(peak: float, warmup: int, total: int, floor: float = 0.0) -> Schedule:
+    def f(step):
+        step = step.float()
+        warm = peak * step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = floor + 0.5 * (peak - floor) * (1.0 + torch.cos(math.pi * prog))
+        return torch.where(step < warmup, warm, cos)
+
+    return f
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    norm = global_norm(tree)
+    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-9), 1.0)
+    return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
+
+
+def _lr(lr, step):
+    return lr(step) if callable(lr) else torch.tensor(lr, dtype=torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: Schedule | float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    grad_clip_norm: float | None = 1.0
+    # keep an fp32 master copy in the optimizer state so params can live in
+    # bf16 while the update accumulates in fp32
+    master_weights: bool = False
+
+    def init(self, params):
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+        st = {
+            "m": tree_map(zeros, params),
+            "v": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32),
+        }
+        if self.master_weights:
+            st["master"] = tree_map(lambda p: p.detach().float().clone(), params)
+        return st
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        step = state["step"] + 1
+        gnorm = torch.zeros((), dtype=torch.float32)
+        if self.grad_clip_norm is not None:
+            grads, gnorm = clip_by_global_norm(grads, self.grad_clip_norm)
+        b1, b2 = self.b1, self.b2
+        bc1 = 1.0 - b1 ** step.float()
+        bc2 = 1.0 - b2 ** step.float()
+        lr = _lr(self.lr, step)
+
+        def upd(p, g, m, v, master=None):
+            g32 = g.float()
+            m = b1 * m + (1 - b1) * g32
+            v = b2 * v + (1 - b2) * torch.square(g32)
+            mhat = m / bc1
+            vhat = v / bc2
+            delta = mhat / (torch.sqrt(vhat) + self.eps)
+            ref = master if master is not None else p.float()
+            if self.weight_decay:
+                delta = delta + self.weight_decay * ref
+            new_ref = ref - lr * delta
+            return new_ref.to(p.dtype), m, v, new_ref
+
+        flat_p = tree_leaves(params)
+        flat_ma = tree_leaves(state["master"]) if self.master_weights else [None] * len(flat_p)
+        out = [
+            upd(*args)
+            for args in zip(
+                flat_p, tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]), flat_ma
+            )
+        ]
+        new_state = {
+            "m": tree_unflatten(params, [o[1] for o in out]),
+            "v": tree_unflatten(params, [o[2] for o in out]),
+            "step": step,
+        }
+        if self.master_weights:
+            new_state["master"] = tree_unflatten(params, [o[3] for o in out])
+        new_p = tree_unflatten(params, [o[0] for o in out])
+        return new_p, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam(AdamW):
+    """Adam = AdamW with zero decoupled weight decay (pix2pix uses
+    Adam(2e-4, b1=0.5) per the paper's reference implementation)."""
+
+    weight_decay: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    lr: Schedule | float = 0.01
+    momentum: float = 0.9
+
+    def init(self, params):
+        return {
+            "mom": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params),
+            "step": torch.zeros((), dtype=torch.int32),
+        }
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        step = state["step"] + 1
+        lr = _lr(self.lr, step)
+
+        def upd(p, g, m):
+            m = self.momentum * m + g.float()
+            return (p.float() - lr * m).to(p.dtype), m
+
+        out = [
+            upd(p, g, m)
+            for p, g, m in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["mom"]))
+        ]
+        new_p = tree_unflatten(params, [o[0] for o in out])
+        new_m = tree_unflatten(params, [o[1] for o in out])
+        return new_p, {"mom": new_m, "step": step}, {"lr": lr}

@@ -1,0 +1,84 @@
+"""Train / eval step factories for the paper's two models.
+
+The returned steps mirror the JAX package's pure functions: they take the
+parameter and optimizer-state trees and return new ones. Gradients come
+from ``torch.autograd.grad`` over the leaves of the trees being trained,
+on leaf copies that require grad, so the caller's tensors are left as they
+were. A leaf the loss does not reach (BatchNorm's ``moving_*`` statistics)
+gets a zero gradient, as ``jax.grad`` gives it, so the global norm and the
+optimizer state match the reference. Training runs the plain ops
+(``impl``/``deconv_backend="xla"``): the kernels have no backward and
+refuse to run under autograd.
+
+(The LM step factories come with the LM model zoo.)
+"""
+from __future__ import annotations
+
+import torch
+
+from ..nn.module import tree_leaves, tree_map, tree_unflatten
+from .losses import pix2pix_d_loss, pix2pix_g_loss, yolo_loss
+
+
+def _trainable(tree):
+    return tree_map(lambda t: t.detach().requires_grad_(), tree)
+
+
+def _grads(loss, tree):
+    """d loss / d leaves of ``tree``, as a tree; unreached leaves get zeros."""
+    leaves = tree_leaves(tree)
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return tree_unflatten(tree, [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, got)])
+
+
+def make_pix2pix_train_step(model, g_opt, d_opt, lambda_l1: float = 100.0):
+    """params = {"generator": ..., "discriminator": ...};
+    opt_state = {"g": ..., "d": ...}; batch = {"src": CT, "dst": MRI} in [-1,1].
+
+    ``step(params, opt_state, batch, generator=None)``: ``generator`` (a
+    ``torch.Generator`` on the batch's device) draws the generator's
+    dropout; None runs without dropout, as JAX's ``rng=None``."""
+
+    def train_step(params, opt_state, batch, generator=None):
+        src, dst = batch["src"], batch["dst"]
+        g_params = _trainable(params["generator"])
+        fake = model.generate({"generator": g_params}, src, generator=generator, train=True)
+        d_fake = model.discriminate(params, src, fake)
+        g_loss, g_parts = pix2pix_g_loss(d_fake, fake, dst, lambda_l1)
+        g_grads = _grads(g_loss, g_params)
+
+        d_params = _trainable(params["discriminator"])
+        d_real = model.discriminate({"discriminator": d_params}, src, dst)
+        d_fake = model.discriminate({"discriminator": d_params}, src, fake.detach())
+        d_loss, d_parts = pix2pix_d_loss(d_real, d_fake)
+        d_grads = _grads(d_loss, d_params)
+
+        new_g, g_state, _ = g_opt.update(g_grads, opt_state["g"], params["generator"])
+        new_d, d_state, _ = d_opt.update(d_grads, opt_state["d"], params["discriminator"])
+        metrics = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach()}
+        metrics.update({k: v.detach() for k, v in {**g_parts, **d_parts}.items()})
+        return {"generator": new_g, "discriminator": new_d}, {"g": g_state, "d": d_state}, metrics
+
+    return train_step
+
+
+def make_pix2pix_infer(model):
+    @torch.no_grad()
+    def infer(params, src):
+        return model.generate(params, src, train=False)
+
+    return infer
+
+
+def make_yolo_train_step(model, optimizer):
+    cfg = model.cfg
+
+    def train_step(params, opt_state, batch):
+        p = _trainable(params)
+        preds = model(p, batch["image"])
+        loss, parts = yolo_loss(preds, batch["targets"], cfg.n_classes, cfg.reg_max)
+        grads = _grads(loss, p)
+        params, opt_state, opt_info = optimizer.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss.detach(), "n_pos": parts["n_pos"], **opt_info}
+
+    return train_step

@@ -147,10 +147,17 @@ def test_init_is_seeded_and_lands_on_the_device():
 
 
 def test_pallas_deconv_backend_is_queued():
-    cfg = tm.Pix2PixConfig(img_size=16, base=4, deconv_backend="pallas")
-    p = tm.Pix2PixGenerator(cfg).init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="deconv2d"):
-        tm.Pix2PixGenerator(cfg)(p, torch.zeros(1, 16, 16, 3))
+    """The ``deconv_backend="pallas"`` generator (the deconv2d op, its
+    plain version on the CPU), padded and cropping, against the JAX
+    generator on ``xla`` at the pin of ``test_kernels.py``'s Pallas test
+    (atol 2e-4). The name predates the port of the kernel."""
+    x = _x((1, 32, 32, 3), seed=2)
+    for mode in ("padded", "cropping"):
+        kw = dict(img_size=32, base=8, deconv_mode=mode)
+        gj = jm.Pix2PixGenerator(jm.Pix2PixConfig(**kw))
+        pj = _jax_params(gj, seed=3)
+        gt = tm.Pix2PixGenerator(tm.Pix2PixConfig(**kw, deconv_backend="pallas"))
+        _close(gt(_port(pj), torch.from_numpy(x)), gj(pj, jnp.asarray(x)), 2e-4)
 
 
 # ----------------------------------------------------------------- models

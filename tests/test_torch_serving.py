@@ -168,6 +168,16 @@ def test_profiled_ticks_and_plan_prepare_run_on_the_port():
     assert ex.prepare_plan(bundle.plan) == sum(len(r) for r in bundle.plan.segments)
 
 
+# modules of the training -> surgery -> evaluation slice, which the walk
+# below must reach
+NEW_MODULES = [
+    "repro_torch.kernels._build", "repro_torch.kernels.deconv.kernel", "repro_torch.kernels.deconv.ops",
+    "repro_torch.kernels.deconv.ref", "repro_torch.core.surgery", "repro_torch.data.synthetic",
+    "repro_torch.train.losses", "repro_torch.train.metrics", "repro_torch.train.optimizer",
+    "repro_torch.train.steps",
+]
+
+
 def test_port_imports_neither_jax_nor_repro():
     """Every module of the package and ``chip_smoke.py`` import neither
     ``jax`` nor ``repro``: once imported, and in every import statement
@@ -190,6 +200,8 @@ def test_port_imports_neither_jax_nor_repro():
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
+        f"missing = sorted(set({NEW_MODULES!r}) - set(sys.modules))\n"
+        "assert not missing, missing\n"
         "print('ok', len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
     r = subprocess.run(
