@@ -39,7 +39,32 @@ toolkit, this
    and evaluates the trained generator on an 8-image batch through the
    kernel: exactly 8 ``deconv2d`` launches, output within atol 1e-4 of the
    padded ``xla`` generator, SSIM/PSNR printed; then checks and times each
-   of those 8 calls.
+   of those 8 calls;
+8. holds the two LM kernels (``kernels/attention/csrc/flash_attention.cu``,
+   ``kernels/ssd/csrc/ssd.cu``) against their plain versions at their shape
+   classes, in f32 and bf16 (flash: Hymba-1.5B's local and global layers,
+   gemma2's D 256 softcap class, a ragged length, Sq < Sk; SSD: Hymba,
+   Mamba2-2.7B's n 128 class, 4 groups, a ragged length), at the JAX
+   package's pins (flash atol 3e-4 f32 / 4e-2 bf16, and bf16 also within
+   one bf16 ulp of the output of the f32 plain version on the same inputs,
+   ``FLASH_BF16_RTOL``; SSD y and final state atol 3e-3 / 0.15 with rtol
+   2e-2, against the plain version in f32 on the same inputs), timing kernel, plain version, library call (SDPA with the
+   boolean mask; none for softcap or the scan) and bound;
+9. serves Hymba-1.5B's prefill at full width: 1,589,773,120 random
+   parameters from a ``torch.Generator`` on the card, ``make_lm_prefill`` on
+   2 x 4096 seeded tokens with f32 and with the config's bf16 activations,
+   each run with the counters set to 0 just before: exactly 32
+   ``flash_attention`` and 32 ``ssd`` launches; last-token logits, KV caches
+   and SSM / conv states held against the same prefill on the plain ops on
+   the card (``PREFILL_F32_TOL``); ms per prefill, tokens/s, peak memory,
+   the bf16 prefill's device time by kind of kernel and idle share
+   (``torch.profiler``); the calls of one prefill checked and timed by
+   shape, as in 8;
+10. decodes at full width: ``decode_step`` over a 16-token prompt with f32
+   activations and caches against ``__call__`` at the same positions
+   (atol 5e-2, rtol 1e-2), then ``greedy_generate`` with batch 4, prompt 16
+   and 16 new tokens (``launch/serve.py --mode lm``'s defaults), tokens/s
+   on the host clock.
 
 It prints a ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
 line; any failure raises and exits non-zero. Without a CUDA device, or
@@ -50,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -81,6 +107,20 @@ REPLACES = {
 }
 DECONV_SOURCE = "src/repro_torch/kernels/deconv/csrc/deconv2d.cu"
 DECONV_REPLACES = "src/repro/kernels/deconv/kernel.py:86"
+LM_KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "flash_attention": ("src/repro_torch/kernels/attention/csrc/flash_attention.cu",
+                        "src/repro/kernels/attention/kernel.py:80"),
+    "ssd": ("src/repro_torch/kernels/ssd/csrc/ssd.cu", "src/repro/kernels/ssd/kernel.py:67"),
+}
+SSD_STEP = 64  # the SSD kernel's own chunk (T in csrc/ssd.cu)
+HYMBA_PARAMS = 1_589_773_120
+PREFILL_B, PREFILL_S = 2, 4096
+# The bf16 flash kernel reads bf16 and computes in fp32, so against
+# attention_ref in f32 on the same (upcast) inputs it differs by the
+# output's rounding to bf16 (at most half an ulp, 2^-8 |out|) and fp32
+# summation order (<= 1.25e-6 in the f32 classes, PERF.md): one bf16 ulp
+# (2^-7 |out|) plus 1e-5.
+FLASH_BF16_ATOL, FLASH_BF16_RTOL = 1e-5, 2.0**-7
 
 
 def cuda_ms(fn, reps=20, warm=3):
@@ -571,6 +611,408 @@ def eval_phase(torch, deconv_ops, cfg, params, dev):
     return launches, calls, metrics
 
 
+def attention_pairs(Sq, Sk, causal, window):
+    """The (query, key) pairs inside ``attention_ref``'s mask, counted row
+    by row: query i sits at key position i + Sk - Sq."""
+    off, total = Sk - Sq, 0
+    for i in range(Sq):
+        qp = i + off
+        hi = min(Sk, qp + 1) if causal else Sk
+        lo = max(0, qp - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def lm_bound(name, a):
+    """(bytes time, operations time) in ms for one LM kernel call: every
+    input read once and every output written once over the HBM rate;
+    operations over the operands' peak (fp32 FMA, or bf16 tensor cores).
+    Flash attention: 4 D operations per (query, key) pair inside the mask
+    (the score and its share of P.V), for each query head. The SSD scan, as
+    the kernel chunks it (``SSD_STEP``): per chunk of L steps the L(L+1)/2
+    causal pairs of C.B^T once per group (n multiply-adds each) and of the
+    decayed mix once per head (p each), plus per step and head the
+    inter-chunk read-out and the state update (p n each)."""
+    import torch
+
+    if name == "flash_attention":
+        q, k = a["q"], a["k"]
+        B, Sq, Hq, D = q.shape
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        ops = 4 * B * Hq * D * attention_pairs(Sq, k.shape[1], a["causal"], int(a["window"] or 0))
+        dtype = q.dtype
+    else:
+        x, Bm = a["x"], a["B"]
+        b, s, h, p = x.shape
+        g, n = Bm.shape[2], Bm.shape[3]
+        state = 4 * b * h * p * n if a["return_state"] else 0
+        nbytes = x.element_size() * (2 * x.numel() + a["dt"].numel() + 2 * Bm.numel()) + 4 * h + state
+        pairs = sum(min(SSD_STEP, s - c) * (min(SSD_STEP, s - c) + 1) // 2 for c in range(0, s, SSD_STEP))
+        ops = 2 * b * (g * pairs * n + h * pairs * p + 2 * h * s * p * n)
+        dtype = x.dtype
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+
+
+def lm_library_fn(name, a):
+    """``F.scaled_dot_product_attention`` with the boolean mask and GQA (a
+    yardstick only; the port never calls it), or None: no one PyTorch call
+    applies a softcap or computes the SSD scan."""
+    import torch
+    import torch.nn.functional as F
+
+    if name != "flash_attention" or a["softcap"]:
+        return None
+    q, k, v = (a[n].transpose(1, 2) for n in ("q", "k", "v"))
+    Sq, Sk, dev = q.shape[2], k.shape[2], q.device
+    qpos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=dev)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if a["causal"]:
+        mask &= kpos <= qpos
+    if a["window"]:
+        mask &= (qpos - kpos) < a["window"]
+    scale = a["scale"] if a["scale"] is not None else 1.0 / math.sqrt(q.shape[-1])
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+class LMBench:
+    """Checks and times one LM kernel call against its plain version."""
+
+    def __init__(self, attn_ops, attn_ref, ssd_ops, ssd_ref):
+        self.fns = {
+            "flash_attention": (attn_ops.attention, attn_ref.attention_ref),
+            "ssd": (ssd_ops.ssd, ssd_ref.ssd_chunked),
+        }
+        self.sig = {n: inspect.signature(op) for n, (op, _) in self.fns.items()}
+
+    def args(self, name, *args, **kw):
+        a = self.sig[name].bind(*args, **kw)
+        a.apply_defaults()
+        return dict(a.arguments)
+
+    def run(self, name, a):
+        """Flash: the kernel against ``attention_ref`` in the same dtype (atol
+        3e-4 f32, 4e-2 bf16: the JAX package's pins); in bf16 also against
+        ``attention_ref`` in f32 on the same (upcast) inputs, within
+        ``FLASH_BF16_ATOL`` + ``FLASH_BF16_RTOL`` |out|, and the plain bf16
+        version's own distance from it is recorded as a control. SSD: y and
+        the final state against ``ssd_chunked`` in f32 on the same inputs
+        (atol 3e-3 / 0.15 for f32 / bf16 inputs, rtol 2e-2), the JAX
+        package's pins; its plain time is taken in the working dtype, A in
+        x's dtype as the model passes it. ``max_abs_err`` is the error
+        against the f32 reference."""
+        import torch
+
+        op, ref = self.fns[name]
+        kernel = lambda: op(**a)  # noqa: E731
+        got = kernel()
+        bf16 = (a["q"] if name == "flash_attention" else a["x"]).dtype == torch.bfloat16
+        a32 = {k: v.float() if isinstance(v, torch.Tensor) else v for k, v in a.items()}
+        extra = {}
+        if name == "flash_attention":
+            plain = lambda: ref(**a)  # noqa: E731
+            want = plain()
+            checks = [(got, want, 4e-2 if bf16 else 3e-4, 0.0)]
+            if bf16:
+                want32 = ref(**a32)
+                checks.insert(0, (got, want32, FLASH_BF16_ATOL, FLASH_BF16_RTOL))
+                extra = {"err_vs_same_dtype_ref": (got.float() - want.float()).abs().max().item(),
+                         "bf16_plain_vs_f32": (want.float() - want32).abs().max().item(),
+                         "out_absmax": want32.abs().max().item(),
+                         "out_rms": want32.square().mean().sqrt().item()}
+        else:
+            a32["return_state"] = True
+            wy, wst = ref(**a32)
+            atol, rtol = (0.15 if bf16 else 3e-3), 2e-2
+            checks = [(got[0], wy, atol, rtol), (got[1], wst, atol, rtol)] if a["return_state"] else [(got, wy, atol, rtol)]
+            aw = dict(a, A=a["A"].to(a["x"].dtype))
+            plain = lambda: ref(**aw)  # noqa: E731
+        torch.cuda.synchronize()
+        errs = []
+        for g, w, atol, rtol in checks:
+            if g.shape != w.shape:
+                raise AssertionError(f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)}")
+            d = (g.float() - w.float()).abs()
+            errs.append(d.max().item())
+            if not math.isfinite(errs[-1]) or (d - atol - rtol * w.float().abs()).max().item() > 0:
+                raise AssertionError(
+                    f"{name} {describe_lm(name, a)}: max abs err {errs[-1]:.3g} beyond atol {atol:g}, rtol {rtol:g}"
+                )
+        err = errs[0] if name == "flash_attention" else max(errs)
+        bytes_ms, ops_ms = lm_bound(name, a)
+        ms, host_ms = cuda_ms(kernel)
+        plain_ms, _ = cuda_ms(plain, reps=5)
+        lib = lm_library_fn(name, a)
+        library_ms = cuda_ms(lib)[0] if lib is not None else None
+        return {"max_abs_err": err, "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms), **extra}
+
+
+def describe_lm(name, a):
+    if name == "flash_attention":
+        soft = f" softcap {a['softcap']:g}" if a["softcap"] else ""
+        return (f"q{tuple(a['q'].shape)} k{tuple(a['k'].shape)} window {a['window'] or 0}{soft} "
+                f"{str(a['q'].dtype)[6:]}")
+    return f"x{tuple(a['x'].shape)} B{tuple(a['B'].shape)} {str(a['x'].dtype)[6:]}"
+
+
+def lm_classes(torch, dev):
+    """The LM kernels' shape classes on random inputs (the JAX package's
+    distributions), each in f32 and bf16: flash at Hymba-1.5B's local and
+    global prefill layers, gemma2's D 256 softcap class, a ragged length
+    and Sq < Sk; the SSD scan at Hymba-1.5B, Mamba2-2.7B's n 128 class, 4
+    groups, and a ragged length."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(dev).manual_seed(3)
+    t = lambda *shape, scale=1.0: torch.randn(shape, generator=g, device=dev) * scale  # noqa: E731
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Sq, Sk, Hq, Hk, D, window, softcap in (
+            (2, 4096, 4096, 25, 5, 64, 1024, None), (2, 4096, 4096, 25, 5, 64, 0, None),
+            (1, 4096, 4096, 8, 4, 256, 4096, 50.0), (2, 1000, 1000, 25, 5, 64, 256, None),
+            (2, 384, 4096, 25, 5, 64, 1024, None),
+        ):
+            q, k, v = t(B, Sq, Hq, D).to(dtype), t(B, Sk, Hk, D).to(dtype), t(B, Sk, Hk, D).to(dtype)
+            out.append(("flash_attention", (q, k, v), dict(causal=True, window=window, softcap=softcap)))
+        for b, s, h, p, gg, n, ch in (
+            (2, 4096, 50, 64, 1, 16, 256), (1, 2048, 80, 64, 1, 128, 256), (2, 512, 4, 64, 4, 64, 128),
+            (2, 1000, 50, 64, 1, 16, 256),
+        ):
+            x, dt = t(b, s, h, p).to(dtype), F.softplus(t(b, s, h)).to(dtype)
+            A = -torch.exp(t(h, scale=0.5))
+            Bm, Cm = t(b, s, gg, n, scale=0.5).to(dtype), t(b, s, gg, n, scale=0.5).to(dtype)
+            out.append(("ssd", (x, dt, A, Bm, Cm), dict(chunk=ch, return_state=True)))
+    return out
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+def _rel_norm(a, b):
+    """Relative Frobenius difference ||a - b|| / ||b||, in float32."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _prefill_leaves(res):
+    logits, c = res
+    return {"logits": logits, "kv.k": c["kv"]["k"], "kv.v": c["kv"]["v"], "ssm.conv": c["ssm"]["conv"],
+            "ssm.ssm": c["ssm"]["ssm"]}
+
+
+# Tolerances of the kernel-routed prefill against the plain-ops prefill,
+# fixed before the first run (PERF.md §6). f32: both routes compute one
+# function in fp32 and differ only in summation order (online vs full
+# softmax, SSD steps of 64 vs chunks of 256), ~1e-7 relative per op grown
+# through 32 residual layers: relative Frobenius difference <= 1e-4 for the
+# logits and the f32 SSM states, <= 1e-3 for what is stored in bf16 (KV
+# caches, conv tails: a 1e-7 change can flip a bf16 rounding). bf16: the
+# plain route rounds inside attention and the scan (bf16 scores, probs,
+# cumsum), the kernels accumulate in fp32; each leaf's difference between
+# the two bf16 routes must stay within twice the plain bf16 route's own
+# distance from the f32 plain prefill, plus 1e-3.
+PREFILL_F32_TOL = {"logits": 1e-4, "kv.k": 1e-3, "kv.v": 1e-3, "ssm.conv": 1e-3, "ssm.ssm": 1e-4}
+
+
+def prefill_time_split(torch, prefill, params, tokens):
+    """One prefill under ``torch.profiler``: device time by kind of kernel
+    (the two LM kernels, matmuls, everything else) and the device's idle
+    share of the CUDA-event wall of the same run (the profiler's own host
+    cost included). Empty when the profiler recorded no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        prefill(params, tokens)
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    by_kind, other = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        low, ms = e.key.lower(), e.self_device_time_total / 1e3
+        if "flash_kernel" in low:
+            kind = "flash_attention"
+        elif "ssd_kernel" in low:
+            kind = "ssd"
+        elif any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
+            kind = "matmul"
+        else:
+            kind = "other"
+            other[e.key[:60]] = other.get(e.key[:60], 0.0) + ms
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    busy = sum(by_kind.values())
+    if busy == 0.0:
+        return {}
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall, "by_kind": by_kind, "top_other": top}
+
+
+def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref):
+    """Hymba-1.5B's prefill at full width, through the kernels and on the
+    plain ops. Returns the config, the parameters, the main-path launches,
+    the kernels' calls of one bf16 prefill grouped by shape, and rows."""
+    import numpy as np
+
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.nn.module import param_count
+    from repro_torch.train import make_lm_prefill
+
+    cfg = get_arch("hymba_1_5b").config
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = param_count(params)
+    if n != HYMBA_PARAMS:
+        raise AssertionError(f"hymba-1.5b has {n} parameters, want {HYMBA_PARAMS}")
+    print(f"hymba-1.5b: {n:,} random f32 parameters on the card in {time.perf_counter() - t0:.1f} s")
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (PREFILL_B, PREFILL_S)).astype(np.int32)
+    ).to(dev)
+    groups = {}
+
+    def recorder(name, real):
+        def f(*args, **kw):
+            a = lm_bench.args(name, *args, **kw)
+            sig = (name, describe_lm(name, a), a.get("window"), a.get("chunk"))
+            groups.setdefault(sig, [a, 0])[1] += 1
+            return real(*args, **kw)
+
+        return f
+
+    results, rows, launches = {}, {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype)[6:]
+        prefill = make_lm_prefill(build_model(dataclasses.replace(cfg, act_dtype=dtype)))
+        if dtype == torch.bfloat16:  # warm-up, recording the kernels' calls by shape
+            with patched(attn_ops, "attention", recorder("flash_attention", attn_ops.attention)), \
+                    patched(ssd_ops, "ssd", recorder("ssd", ssd_ops.ssd)):
+                prefill(params, tokens)
+        else:
+            prefill(params, tokens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        attn_ops.reset_launches()
+        ssd_ops.reset_launches()
+        t0 = time.perf_counter()
+        start.record()
+        kern = prefill(params, tokens)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        launches = {**attn_ops.launches, **ssd_ops.launches}
+        if launches != {"flash_attention": cfg.n_layers, "ssd": cfg.n_layers}:
+            raise AssertionError(f"{key} prefill launched {launches}, want {cfg.n_layers} of each")
+        ms, peak = start.elapsed_time(end), torch.cuda.max_memory_allocated()
+        if dtype == torch.bfloat16:
+            split = prefill_time_split(torch, prefill, params, tokens)
+            rows["bfloat16_split"] = split
+            if not split:
+                print("prefill bfloat16 time split: not measured (the profiler recorded no kernel)")
+            else:
+                kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["by_kind"].items(), key=lambda kv: -kv[1]))
+                print(f"prefill bfloat16 under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy "
+                      f"{split['busy_ms']:.2f} ms ({kinds}), idle {100 * split['idle_share']:.1f}%; largest other: "
+                      + "; ".join(f"{k} {v:.2f}" for k, v in split["top_other"]))
+        with patched(attn_ops, "attention", attn_ref.attention_ref), patched(ssd_ops, "ssd", ssd_ref.ssd_chunked):
+            start.record()
+            plain = prefill(params, tokens)
+            end.record()
+            torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        results[key] = {"kernel": _prefill_leaves(kern), "plain": _prefill_leaves(plain)}
+        shapes = {k: tuple(v.shape) for k, v in results[key]["kernel"].items()}
+        for leaf, v in results[key]["kernel"].items():
+            if not bool(torch.isfinite(v.float()).all()) or tuple(v.shape) != tuple(results[key]["plain"][leaf].shape):
+                raise AssertionError(f"{key} prefill {leaf}: non-finite values or shape {tuple(v.shape)}")
+        tok_s = PREFILL_B * PREFILL_S / (ms / 1e3)
+        rows[key] = {"ms": ms, "host_ms": host_ms, "plain_route_ms": plain_ms, "tokens_per_s": tok_s,
+                     "peak_bytes": peak, "launches": launches, "shapes": shapes}
+        print(
+            f"prefill {key} (batch {PREFILL_B} x {PREFILL_S} tokens): launches {json.dumps(launches)}; "
+            f"{ms:.2f} ms on the card (host {host_ms:.2f}), {tok_s:,.0f} tokens/s, peak {peak / 2**30:.2f} GiB; "
+            f"plain-ops route {plain_ms:.2f} ms | {smi}"
+        )
+    f32, b16 = results["float32"], results["bfloat16"]
+    checks = {}
+    for leaf, tol in PREFILL_F32_TOL.items():
+        d = _rel_norm(f32["kernel"][leaf], f32["plain"][leaf])
+        e_plain = _rel_norm(b16["plain"][leaf], f32["plain"][leaf])
+        e_kern = _rel_norm(b16["kernel"][leaf], f32["plain"][leaf])
+        d16 = _rel_norm(b16["kernel"][leaf], b16["plain"][leaf])
+        tol16 = 2 * e_plain + 1e-3
+        checks[leaf] = {"f32_rel": d, "f32_tol": tol, "bf16_rel": d16, "bf16_tol": tol16,
+                        "bf16_plain_vs_f32": e_plain, "bf16_kernel_vs_f32": e_kern}
+        print(f"  {leaf:8s} f32 kernel vs plain {d:.3e} (<= {tol:g}); bf16 kernel vs plain {d16:.3e} "
+              f"(<= {tol16:.3e}); vs the f32 plain prefill: bf16 plain {e_plain:.3e}, bf16 kernel {e_kern:.3e}")
+        if not d <= tol or not d16 <= tol16:
+            raise AssertionError(f"prefill {leaf}: kernel route vs plain ops beyond tolerance {checks[leaf]}")
+    rows["checks"] = checks
+    calls = [(name, a, count) for (name, *_), (a, count) in groups.items()]
+    if sorted((nm, c) for nm, _, c in calls) != sorted(
+        [("flash_attention", cfg.n_layers - len(cfg.global_layers)), ("flash_attention", len(cfg.global_layers)),
+         ("ssd", cfg.n_layers)]
+    ):
+        raise AssertionError(f"unexpected prefill kernel calls {[(nm, describe_lm(nm, a), c) for nm, a, c in calls]}")
+    return cfg, params, launches, calls, rows
+
+
+def hymba_decode_phase(torch, smi, dev, cfg, params):
+    """decode_step over a 16-token prompt (f32 activations and caches)
+    against __call__ at the same positions, then greedy_generate with
+    launch/serve.py --mode lm's defaults (batch 4, prompt 16, 16 tokens)."""
+    import numpy as np
+
+    from repro_torch.configs import build_model
+    from repro_torch.train import greedy_generate, make_lm_decode_step
+
+    model = build_model(dataclasses.replace(cfg, act_dtype=torch.float32))
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        full, _ = model(params, toks)
+    step = make_lm_decode_step(model)
+    caches = model.init_caches(2, 16, dtype=torch.float32, device=dev)
+    outs = []
+    for t in range(16):
+        lg, caches = step(params, toks[:, t : t + 1], caches, t)
+        outs.append(lg)
+    dec = torch.cat(outs, 1)
+    torch.cuda.synchronize()
+    err = (dec - full).abs().max().item()
+    torch.testing.assert_close(dec, full, atol=5e-2, rtol=1e-2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)).to(dev)
+    greedy_generate(model, params, prompt[:, :2], 2, 4, cache_dtype=torch.float32)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = greedy_generate(model, params, prompt, 16, 32, cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if tuple(gen.shape) != (4, 16) or not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+        raise AssertionError(f"greedy_generate gave {tuple(gen.shape)} / out-of-vocabulary ids")
+    row = {"decode_vs_call_max_abs_err": err, "generate_wall_s": wall, "tokens_per_s": 4 * 16 / wall,
+           "ms_per_step": wall * 1e3 / 31}
+    print(
+        f"decode (f32, 16 tokens, batch 2) vs __call__: max |delta logits| {err:.3e} (atol 5e-2, rtol 1e-2); "
+        f"greedy_generate batch 4, prompt 16, 16 new: {row['tokens_per_s']:.1f} tokens/s, "
+        f"{row['ms_per_step']:.1f} ms per decode step (host clock) | {smi}"
+    )
+    return row
+
+
 def capture_main_path_calls(torch, ops, build_server, dev):
     """Every kernel call of one Pix2Pix and one YOLOv8 frame on the
     pallas_fused path: the model ops bind ``ops``' functions when the
@@ -620,7 +1062,13 @@ def main() -> int:
     from repro_torch.kernels.deconv import kernel as deconv_kernel
     from repro_torch.kernels.deconv import ops as deconv_ops
     from repro_torch.kernels.deconv import ref as deconv_ref
+    from repro_torch.kernels.attention import kernel as attn_kernel
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention import ref as attn_ref
     from repro_torch.kernels.fused import kernel, ops, ref
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.serve import build_server
 
     torch.backends.cudnn.allow_tf32 = False
@@ -635,16 +1083,17 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     t_build = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc per source, at once
-        builds = list(pool.map(lambda k: k.build(), (kernel, deconv_kernel)))
-    print(f"build: {time.perf_counter() - t_build:.1f} s for both sources")
+    kernel_mods = (kernel, deconv_kernel, attn_kernel, ssd_kernel)
+    with concurrent.futures.ThreadPoolExecutor(len(kernel_mods)) as pool:  # one nvcc per source, at once
+        builds = list(pool.map(lambda k: k.build(), kernel_mods))
+    print(f"build: {time.perf_counter() - t_build:.1f} s for the {len(kernel_mods)} sources")
     for built in builds:
         print(f"  {Path(built['path']).name}: {built['seconds']:.1f} s nvcc")
         for line in built["log"].splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  ptxas:", line.split(":", 1)[-1].strip())
-    kernel.library()
-    deconv_kernel.library()
+    for k in kernel_mods:
+        k.library()
 
     bench = Bench(ops, ref, deconv_ops, deconv_ref)
     rows = []
@@ -785,6 +1234,50 @@ def main() -> int:
         f"{deconv_tot['library_ms']:.4f}, bound {deconv_tot['bound_ms']:.5f} | {smi}"
     )
 
+    print("-- LM kernels vs plain versions, shape classes (ms on the card, CUDA events)")
+    lm_bench = LMBench(attn_ops, attn_ref, ssd_ops, ssd_ref)
+    for name, a_, kw in lm_classes(torch, dev):
+        a = lm_bench.args(name, *a_, **kw)
+        r = lm_bench.run(name, a)
+        rows.append({"phase": "lm classes", "kernel": name, "shape": describe_lm(name, a), **r})
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(
+            f"{name:15s} {describe_lm(name, a):52s} max_err={r['max_abs_err']:.2e} kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={lib} bound_ms={r['bound_ms']:.5f} "
+            f"({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'})"
+        )
+        if "bf16_plain_vs_f32" in r:
+            print(f"{'':15s} bf16 vs f32 plain on the same inputs: kernel {r['max_abs_err']:.3e}, plain bf16 "
+                  f"(control) {r['bf16_plain_vs_f32']:.3e}; kernel vs plain bf16 {r['err_vs_same_dtype_ref']:.3e}; "
+                  f"|out| max {r['out_absmax']:.3e}, rms {r['out_rms']:.3e}")
+
+    print(f"-- main path: Hymba-1.5B prefill at full width ({PREFILL_B} x {PREFILL_S} tokens), TF32 off")
+    hcfg, hparams, lm_launches, lm_calls, prefill_rows = hymba_prefill_phase(
+        torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref
+    )
+    lm_tot = {n: dict.fromkeys(fields + ("max_abs_err",), 0.0) for n in LM_KERNELS}
+    lm_lib_none = set()
+    for name, a, count in lm_calls:
+        r = lm_bench.run(name, a)
+        rows.append({"phase": "prefill bf16", "kernel": name, "shape": describe_lm(name, a), "count": count, **r})
+        if r["library_ms"] is None:
+            lm_lib_none.add(name)
+        for f in fields:
+            lm_tot[name][f] += (r[f] or 0.0) * count
+        lm_tot[name]["max_abs_err"] = max(lm_tot[name]["max_abs_err"], r["max_abs_err"])
+        ctl = f" (plain bf16 {r['bf16_plain_vs_f32']:.2e}, |out| rms {r['out_rms']:.2e})" if "bf16_plain_vs_f32" in r else ""
+        print(f"{name:15s} {describe_lm(name, a):52s} x{count}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+              f"bound {r['bound_ms']:.5f}, max_err vs f32 {r['max_abs_err']:.2e}{ctl}")
+    del lm_calls
+    for n, tot in lm_tot.items():
+        lib = "none" if n in lm_lib_none else f"{tot['library_ms']:.4f}"
+        print(f"{n:15s} per bf16 prefill ({lm_launches[n]} calls): kernel {tot['ms']:.4f} ms on the card, "
+              f"plain {tot['plain_ms']:.4f}, library {lib}, bound {tot['bound_ms']:.5f} | {smi}")
+
+    print("-- Hymba-1.5B decode at full width (f32 activations and caches)")
+    decode_row = hymba_decode_phase(torch, smi, dev, hcfg, hparams)
+    del hparams
+
     kernels = []
     for n in REPLACES:
         tot = totals[n]
@@ -802,11 +1295,21 @@ def main() -> int:
         "bound_by": "operations" if deconv_tot["ops_ms"] > deconv_tot["bytes_ms"] else "bytes",
         "library_ms": deconv_tot["library_ms"],
     })
+    for n, (source, replaces) in LM_KERNELS.items():
+        tot = lm_tot[n]
+        kernels.append({
+            "name": n, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": lm_launches[n], "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "operations" if tot["ops_ms"] > tot["bytes_ms"] else "bytes",
+            "library_ms": None if n in lm_lib_none else tot["library_ms"],
+        })
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": smi, "rows": rows, "kernels": kernels, "report": rep, "per_frame_pair": pair,
              "train": train_rows, "eval": eval_metrics, "deconv2d_per_forward": deconv_tot,
+             "hymba_prefill": prefill_rows, "lm_per_prefill": lm_tot, "hymba_decode": decode_row,
              "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

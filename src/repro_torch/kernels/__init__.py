@@ -5,7 +5,13 @@
 import torch
 
 
-def refuse_grad(name: str, *tensors) -> None:
+_TRAIN_HINT = 'train with impl="xla" / deconv_backend="xla" (as the reference does)'
+# the LM kernels (flash attention, the SSD scan) have no plain route on the
+# card yet: LM training, with the plain ops, is a later slice
+LM_HINT = "LM training is not ported yet (it will run the plain ops)"
+
+
+def refuse_grad(name: str, *tensors, hint: str = _TRAIN_HINT) -> None:
     """Raise when autograd would need a gradient through kernel ``name``.
 
     The kernels have no backward, as the TPU kernels they replace have no
@@ -15,7 +21,4 @@ def refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
     ):
-        raise RuntimeError(
-            f"{name} has no backward: train with impl=\"xla\" / deconv_backend=\"xla\" "
-            "(as the reference does), or call it under torch.no_grad()"
-        )
+        raise RuntimeError(f"{name} has no backward: {hint}, or call it under torch.no_grad()")

@@ -1,14 +1,16 @@
 from .module import (
     Module,
     ParamSpec,
+    Stacked,
     param_count,
     from_jax,
     zeros_init,
     ones_init,
+    normal_init,
     lecun_init,
     conv_init,
 )
-from .norm import GroupNorm2D, InstanceNorm2D
+from .norm import GroupNorm2D, InstanceNorm2D, RMSNorm
 from .conv import (
     Conv2D,
     ConvTranspose2D,
@@ -18,3 +20,9 @@ from .conv import (
     avg_pool,
     leaky_relu,
 )
+from .linear import Linear, MultiLinear, OutputLinear
+from .embed import Embedding
+from .rotary import apply_rope, rope_freqs
+from .mlp import MLP
+from .attention import Attention, causal_window_mask, effective_chunk
+from .ssm import Mamba2Block, segsum, ssd_chunked, ssd_decode_step

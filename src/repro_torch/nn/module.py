@@ -5,6 +5,11 @@
 - ``init(generator)`` materializes the params tree: nested dicts/lists of
   tensors with the same structure and layouts as the JAX package's
   (conv weights ``(kh, kw, Cin, Cout)``).
+- ``abstract(dtype)`` is the same tree of ``meta`` tensors: shapes and
+  dtypes without storage, so a full-size model is counted without being
+  allocated.
+- ``Stacked(module, n)`` stacks ``n`` copies on a leading layer axis (the
+  JAX package scans over it; the port's models loop over it).
 - ``from_jax(tree)`` carries a JAX parameter tree (as numpy arrays) over
   unchanged, because ``jax.random`` and ``torch.Generator`` draw different
   numbers from the same seed.
@@ -37,6 +42,10 @@ def ones_init() -> InitFn:
 
 def _normal(g, shape, std, dtype):
     return (torch.randn(shape, generator=g, dtype=torch.float32, device=g.device) * std).to(dtype)
+
+
+def normal_init(stddev: float = 0.02) -> InitFn:
+    return lambda g, shape, dtype: _normal(g, shape, stddev, dtype)
 
 
 def lecun_init(fan_in_dims: tuple[int, ...] = (-2,)) -> InitFn:
@@ -90,6 +99,11 @@ class Module:
         tree = _init_tree(self.specs(), generator, dtype)
         return tree if device is None else tree_map(lambda t: t.to(torch.device(device)), tree)
 
+    def abstract(self, dtype: torch.dtype = torch.float32) -> dict[str, Any]:
+        """The parameter tree as ``meta`` tensors (``jax.ShapeDtypeStruct``'s
+        counterpart): ``param_count`` of it counts a full-size model."""
+        return _abstract_tree(self.specs(), dtype)
+
     def __call__(self, params, *args, **kwargs):  # pragma: no cover - abstract
         raise NotImplementedError
 
@@ -98,12 +112,60 @@ def _init_tree(spec: Any, g: torch.Generator, dtype) -> Any:
     if isinstance(spec, ParamSpec):
         return spec.init(g, spec.shape, spec.dtype or dtype)
     if isinstance(spec, Module):
-        return _init_tree(spec.specs(), g, dtype)
+        return spec.init(g, dtype)
     if isinstance(spec, dict):
         return {k: _init_tree(v, g, dtype) for k, v in sorted(spec.items())}
     if isinstance(spec, (list, tuple)):
         return [_init_tree(v, g, dtype) for v in spec]
     raise TypeError(f"bad spec: {type(spec)}")
+
+
+def _abstract_tree(spec: Any, dtype) -> Any:
+    if isinstance(spec, ParamSpec):
+        return torch.empty(spec.shape, dtype=spec.dtype or dtype, device="meta")
+    if isinstance(spec, Module):
+        return spec.abstract(dtype)
+    if isinstance(spec, dict):
+        return {k: _abstract_tree(v, dtype) for k, v in spec.items()}
+    if isinstance(spec, (list, tuple)):
+        return [_abstract_tree(v, dtype) for v in spec]
+    raise TypeError(f"bad spec: {type(spec)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Stacked(Module):
+    """``n`` copies of ``inner`` stacked on a leading "layers" axis: params
+    come out with shape ``(n, *inner_shape)``, as the JAX package's
+    ``Stacked`` gives them, so ``from_jax`` carries them across as they are.
+    The parent model loops over the leading axis."""
+
+    inner: Module
+    n: int
+
+    def specs(self):
+        return {"stack": self}  # sentinel: init and abstract are overridden
+
+    def init(self, generator, dtype=torch.float32, device=None):
+        """Draw copy 0, then 1, ... from ``generator`` and stack them."""
+        out = tree_stack([self.inner.init(generator, dtype) for _ in range(self.n)])
+        return out if device is None else tree_map(lambda t: t.to(torch.device(device)), out)
+
+    def abstract(self, dtype=torch.float32):
+        return tree_map(lambda t: torch.empty((self.n, *t.shape), dtype=t.dtype, device="meta"),
+                        self.inner.abstract(dtype))
+
+    def __call__(self, params, *args, **kwargs):
+        raise TypeError("Stacked params are consumed layer by layer in the parent model")
+
+
+def layer(tree, i: int):
+    """Layer ``i``'s slice of a ``Stacked`` parameter (or cache) tree: views."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def tree_stack(trees):
+    """Trees of one structure -> one tree with a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
 def tree_map(fn, tree, *rest):

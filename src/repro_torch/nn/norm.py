@@ -1,4 +1,5 @@
-"""Normalization layers on NHWC tensors (computed in fp32, cast back)."""
+"""Normalization layers (computed in fp32, cast back): RMSNorm over the
+last axis, and instance / group norm on NHWC tensors."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +13,28 @@ def _normalize(x32, dims, eps):
     # population variance (correction=0), as jnp.var
     var, mean = torch.var_mean(x32, dim=dims, keepdim=True, correction=0)
     return (x32 - mean) * torch.reciprocal(torch.sqrt(var + eps))
+
+
+@dataclasses.dataclass(frozen=True)
+class RMSNorm(Module):
+    d: int
+    eps: float = 1e-6
+    # gemma convention: weight stored as (1 + scale) with zero-init scale
+    zero_centered: bool = False
+    axis_name: str | None = None
+
+    def specs(self):
+        init = zeros_init() if self.zero_centered else ones_init()
+        return {"scale": ParamSpec((self.d,), (self.axis_name,), init)}
+
+    def __call__(self, p, x):
+        x32 = x.float()
+        var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+        y = x32 * torch.reciprocal(torch.sqrt(var + self.eps))
+        scale = p["scale"].float()
+        if self.zero_centered:
+            scale = 1.0 + scale
+        return (y * scale).to(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)

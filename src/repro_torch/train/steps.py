@@ -10,7 +10,10 @@ optimizer state match the reference. Training runs the plain ops
 (``impl``/``deconv_backend="xla"``): the kernels have no backward and
 refuse to run under autograd.
 
-(The LM step factories come with the LM model zoo.)
+The LM serving entry points (``make_lm_prefill``, ``make_lm_decode_step``,
+``greedy_generate``) run under ``torch.no_grad()`` where the parameters
+are: on the card they go through the LM kernels. The LM training step
+factories come with LM training.
 """
 from __future__ import annotations
 
@@ -82,3 +85,47 @@ def make_yolo_train_step(model, optimizer):
         return params, opt_state, {"loss": loss.detach(), "n_pos": parts["n_pos"], **opt_info}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# LM serving
+# ---------------------------------------------------------------------------
+
+
+def make_lm_decode_step(model):
+    """One serving decode step: (params, token, caches, t) -> (logits, caches)."""
+
+    @torch.no_grad()
+    def decode_step(params, token, caches, t):
+        return model.decode_step(params, token, caches, t)
+
+    return decode_step
+
+
+def make_lm_prefill(model):
+    """(params, tokens) -> (last-token logits, caches)."""
+
+    @torch.no_grad()
+    def prefill(params, tokens):
+        return model.prefill(params, tokens)
+
+    return prefill
+
+
+@torch.no_grad()
+def greedy_generate(model, params, prompt, steps: int, max_len: int, cache_dtype=torch.bfloat16):
+    """Reference sampling loop: the prompt fed one token at a time through
+    ``decode_step``, then ``steps`` greedy tokens. prompt (B, S) int ->
+    (B, steps)."""
+    B, S = prompt.shape
+    caches = model.init_caches(B, max_len, dtype=cache_dtype, device=prompt.device)
+    tok = prompt[:, :1]
+    outs = []
+    for t in range(S + steps - 1):
+        logits, caches = model.decode_step(params, tok, caches, t)
+        if t + 1 < S:
+            tok = prompt[:, t + 1 : t + 2]
+        else:
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
+            outs.append(tok)
+    return torch.cat(outs, dim=1)

@@ -175,6 +175,13 @@ NEW_MODULES = [
     "repro_torch.kernels.deconv.ref", "repro_torch.core.surgery", "repro_torch.data.synthetic",
     "repro_torch.train.losses", "repro_torch.train.metrics", "repro_torch.train.optimizer",
     "repro_torch.train.steps",
+    # the Hymba-1.5B serving slice
+    "repro_torch.kernels.attention.kernel", "repro_torch.kernels.attention.ops",
+    "repro_torch.kernels.attention.ref", "repro_torch.kernels.ssd.kernel", "repro_torch.kernels.ssd.ops",
+    "repro_torch.kernels.ssd.ref", "repro_torch.nn.linear", "repro_torch.nn.embed", "repro_torch.nn.rotary",
+    "repro_torch.nn.mlp", "repro_torch.nn.attention", "repro_torch.nn.ssm", "repro_torch.models.hymba",
+    "repro_torch.configs", "repro_torch.configs.hymba_1_5b", "repro_torch.configs.pix2pix_mri",
+    "repro_torch.configs.yolov8_stroke",
 ]
 
 
