@@ -49,7 +49,11 @@ toolkit, this
    one bf16 ulp of the output of the f32 plain version on the same inputs,
    ``FLASH_BF16_RTOL``; SSD y and final state atol 3e-3 / 0.15 with rtol
    2e-2, against the plain version in f32 on the same inputs), timing kernel, plain version, library call (SDPA with the
-   boolean mask; none for softcap or the scan) and bound;
+   boolean mask; none for softcap or the scan) and bound; each flash row
+   also gives its achieved TFLOP/s (the bound's operation count over the
+   kernel's time) and its share of the bound, and the build step prints
+   ptxas' registers, spills and shared memory of the bf16 flash
+   instantiations (``ptxas_report``);
 9. serves Hymba-1.5B's prefill at full width: 1,589,773,120 random
    parameters from a ``torch.Generator`` on the card, ``make_lm_prefill`` on
    2 x 4096 seeded tokens with f32 and with the config's bf16 activations,
@@ -80,6 +84,7 @@ import dataclasses
 import inspect
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -115,11 +120,12 @@ LM_KERNELS = {  # name -> (source, the TPU kernel it replaces)
 SSD_STEP = 64  # the SSD kernel's own chunk (T in csrc/ssd.cu)
 HYMBA_PARAMS = 1_589_773_120
 PREFILL_B, PREFILL_S = 2, 4096
-# The bf16 flash kernel reads bf16 and computes in fp32, so against
-# attention_ref in f32 on the same (upcast) inputs it differs by the
-# output's rounding to bf16 (at most half an ulp, 2^-8 |out|) and fp32
-# summation order (<= 1.25e-6 in the f32 classes, PERF.md): one bf16 ulp
-# (2^-7 |out|) plus 1e-5.
+# The bf16 flash kernel reads bf16 and accumulates in fp32: Q.K^T of bf16
+# values is exact in the products, and P enters P.V as two bf16 terms
+# (p_hi + p_lo, within 2^-16 |p|). So against attention_ref in f32 on the
+# same (upcast) inputs it differs by the output's rounding to bf16 (at most
+# half an ulp, 2^-8 |out|) and fp32 summation order (<= 1.25e-6 in the f32
+# classes, PERF.md): one bf16 ulp (2^-7 |out|) plus 1e-5.
 FLASH_BF16_ATOL, FLASH_BF16_RTOL = 1e-5, 2.0**-7
 
 
@@ -742,11 +748,43 @@ class LMBench:
         err = errs[0] if name == "flash_attention" else max(errs)
         bytes_ms, ops_ms = lm_bound(name, a)
         ms, host_ms = cuda_ms(kernel)
+        peak = BF16_FLOPS if bf16 else FP32_FLOPS
         plain_ms, _ = cuda_ms(plain, reps=5)
         lib = lm_library_fn(name, a)
         library_ms = cuda_ms(lib)[0] if lib is not None else None
         return {"max_abs_err": err, "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms), **extra}
+                "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "tflop_s": ops_ms * peak / ms / 1e12, "bound_share": max(bytes_ms, ops_ms) / ms, **extra}
+
+
+def ptxas_report(log):
+    """ptxas' ``-v`` report, by entry function: ``{mangled name:
+    {"registers", "spill_stores", "spill_loads", "static_smem"}}`` (spills
+    and shared memory in bytes; dynamic shared memory is not in the log)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"(?:Compiling entry function '|Function properties for )([^'\s]+)", line):
+            cur = out.setdefault(m.group(1), dict.fromkeys(("registers", "spill_stores", "spill_loads", "static_smem"), 0))
+        elif cur is not None:
+            if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            if m := re.search(r"Used (\d+) registers", line):
+                cur["registers"] = int(m.group(1))
+            if m := re.search(r"(\d+) bytes smem", line):
+                cur["static_smem"] = int(m.group(1))
+    return out
+
+
+def flash_tc_report(log, smem_bytes):
+    """The bf16 flash instantiations (``flash_kernel_tc<D>``) in a build
+    log, by head width: ptxas' registers and spills, and the dynamic
+    shared memory a launch asks for (``smem_bytes(D)``)."""
+    rows = {}
+    for fn, r in ptxas_report(log).items():
+        if m := re.search(r"flash_kernel_tcILi(\d+)E", fn):
+            D = int(m.group(1))
+            rows[D] = {**r, "dynamic_smem": smem_bytes(D)}
+    return dict(sorted(rows.items()))
 
 
 def describe_lm(name, a):
@@ -1094,6 +1132,14 @@ def main() -> int:
                 print("  ptxas:", line.split(":", 1)[-1].strip())
     for k in kernel_mods:
         k.library()
+    flash_tc = flash_tc_report(builds[kernel_mods.index(attn_kernel)]["log"],
+                               attn_kernel.library().flash_attention_bf16_smem_bytes)
+    if not flash_tc:
+        print("flash_kernel_tc: no ptxas report (the library was built before this run)")
+    for D, r in flash_tc.items():
+        print(f"flash_kernel_tc<{D}> (bf16): {r['registers']} registers, spill stores {r['spill_stores']} B, "
+              f"spill loads {r['spill_loads']} B, shared memory {r['dynamic_smem']} B dynamic + "
+              f"{r['static_smem']} B static")
 
     bench = Bench(ops, ref, deconv_ops, deconv_ref)
     rows = []
@@ -1246,6 +1292,8 @@ def main() -> int:
             f"plain_ms={r['plain_ms']:.4f} library_ms={lib} bound_ms={r['bound_ms']:.5f} "
             f"({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'})"
         )
+        if name == "flash_attention":
+            print(f"{'':15s} {r['tflop_s']:.2f} TFLOP/s, {100 * r['bound_share']:.2f}% of the bound")
         if "bf16_plain_vs_f32" in r:
             print(f"{'':15s} bf16 vs f32 plain on the same inputs: kernel {r['max_abs_err']:.3e}, plain bf16 "
                   f"(control) {r['bf16_plain_vs_f32']:.3e}; kernel vs plain bf16 {r['err_vs_same_dtype_ref']:.3e}; "
@@ -1266,12 +1314,15 @@ def main() -> int:
             lm_tot[name][f] += (r[f] or 0.0) * count
         lm_tot[name]["max_abs_err"] = max(lm_tot[name]["max_abs_err"], r["max_abs_err"])
         ctl = f" (plain bf16 {r['bf16_plain_vs_f32']:.2e}, |out| rms {r['out_rms']:.2e})" if "bf16_plain_vs_f32" in r else ""
-        print(f"{name:15s} {describe_lm(name, a):52s} x{count}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+        rate = f" ({r['tflop_s']:.2f} TFLOP/s, {100 * r['bound_share']:.2f}% of the bound)" if name == "flash_attention" else ""
+        print(f"{name:15s} {describe_lm(name, a):52s} x{count}: kernel {r['ms']:.4f} ms{rate}, plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.5f}, max_err vs f32 {r['max_abs_err']:.2e}{ctl}")
     del lm_calls
     for n, tot in lm_tot.items():
         lib = "none" if n in lm_lib_none else f"{tot['library_ms']:.4f}"
-        print(f"{n:15s} per bf16 prefill ({lm_launches[n]} calls): kernel {tot['ms']:.4f} ms on the card, "
+        rate = (f" ({tot['ops_ms'] * BF16_FLOPS / tot['ms'] / 1e12:.2f} TFLOP/s, "
+                f"{100 * tot['bound_ms'] / tot['ms']:.2f}% of the bound)") if n == "flash_attention" else ""
+        print(f"{n:15s} per bf16 prefill ({lm_launches[n]} calls): kernel {tot['ms']:.4f} ms on the card{rate}, "
               f"plain {tot['plain_ms']:.4f}, library {lib}, bound {tot['bound_ms']:.5f} | {smi}")
 
     print("-- Hymba-1.5B decode at full width (f32 activations and caches)")
@@ -1310,6 +1361,7 @@ def main() -> int:
             {"card": smi, "rows": rows, "kernels": kernels, "report": rep, "per_frame_pair": pair,
              "train": train_rows, "eval": eval_metrics, "deconv2d_per_forward": deconv_tot,
              "hymba_prefill": prefill_rows, "lm_per_prefill": lm_tot, "hymba_decode": decode_row,
+             "flash_tc_ptxas": flash_tc,
              "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

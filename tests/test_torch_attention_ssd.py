@@ -34,7 +34,8 @@ from repro_torch.nn.module import from_jax  # noqa: E402
 
 # tests/test_kernels.py's ATTN_CASES, plus ragged lengths (no multiple of
 # the 128 tile: the JAX ops send them to the ref, the port's kernel takes
-# them) and an Sq < Sk window case
+# them), an Sq < Sk window case, D 16, and D 128 with a window edge inside
+# a 64-key tile and Sk no multiple of 64
 ATTN_CASES = [
     dict(B=2, Sq=256, Sk=256, Hq=4, Hk=2, D=64, causal=True, window=0, softcap=None),
     dict(B=1, Sq=256, Sk=256, Hq=8, Hk=1, D=32, causal=True, window=64, softcap=50.0),
@@ -43,6 +44,8 @@ ATTN_CASES = [
     dict(B=1, Sq=512, Sk=512, Hq=4, Hk=2, D=64, causal=True, window=128, softcap=30.0),
     dict(B=2, Sq=200, Sk=200, Hq=5, Hk=1, D=64, causal=True, window=50, softcap=None),
     dict(B=1, Sq=77, Sk=301, Hq=4, Hk=2, D=32, causal=True, window=100, softcap=None),
+    dict(B=2, Sq=130, Sk=130, Hq=4, Hk=2, D=16, causal=True, window=0, softcap=None),
+    dict(B=1, Sq=150, Sk=230, Hq=4, Hk=1, D=128, causal=True, window=70, softcap=None),
 ]
 # tests/test_kernels.py's SSD_CASES (b, s, h, p, g, n, chunk), plus a
 # ragged length and Hymba's head layout at a short length
