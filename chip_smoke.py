@@ -8,16 +8,22 @@ toolkit, this
 
 1. prints the card's name and power limit (nvidia-smi) and builds the
    hand-written kernels of ``src/repro_torch/kernels/*/csrc`` with nvcc,
-   one process per source, all at once;
+   one process per source, all at once; prints ptxas' registers, spills and
+   shared memory of the tensor-core instantiations (``flash_tc_report``,
+   ``phase_report``);
 2. holds each kernel against its plain PyTorch version on the card at the
    main path's shape classes (TF32 off; f32 conv/deconv max abs error
    <= 1e-4, SPPF bit-exact), timing kernel, plain version, a library
    composition (cuDNN conv + torch norm + act, or 3x max_pool2d + cat) and
    the bound (see ``bound``) — device times from calls queued ahead of the
-   card, host times from a synchronised loop (see ``cuda_ms``);
+   card, host times from a synchronised loop (see ``cuda_ms``); each
+   deconv_block row also gives its achieved TFLOP/s and share of the bound
+   (``achieved``);
 3. captures every kernel call of one Pix2Pix and one YOLOv8 frame on the
    ``pallas_fused`` path at full width (img 256, base 64), checks and times
-   each distinct call the same way;
+   each distinct call the same way, and splits each deconv_block call's
+   device time between its passes (GEMM, split-K sum, statistics,
+   normalise: ``device_split``);
 4. serves 4 frames on each of 2 Pix2Pix and 1 YOLOv8 streams through
    ``repro_torch.serve.build_server(impl="pallas")`` with the launch
    counters set to 0 just before, requires exactly 316 conv_block, 64
@@ -26,7 +32,8 @@ toolkit, this
    (atol 5e-3, rtol 1e-2);
 5. holds the ``deconv2d`` kernel (``kernels/deconv/csrc``) against its plain
    version at the generator's 8 up-sampling shape classes, a B=8 case and a
-   bf16 case (max abs error <= 1e-4 in f32, <= 5e-2 in bf16), timed as in 2;
+   bf16 case (max abs error <= 1e-4 in f32, <= 5e-2 in bf16, reported by
+   dtype), timed as in 2;
 6. trains at full width: Pix2Pix (padded, ``deconv_backend="xla"``) 5
    steps of ``Adam(2e-4, b1=0.5)`` with seeded dropout on
    ``phantom_batches(1, ...)``, YOLOv8n 3 steps of ``AdamW(1e-3)`` on
@@ -39,7 +46,8 @@ toolkit, this
    and evaluates the trained generator on an 8-image batch through the
    kernel: exactly 8 ``deconv2d`` launches, output within atol 1e-4 of the
    padded ``xla`` generator, SSIM/PSNR printed; then checks and times each
-   of those 8 calls;
+   of those 8 calls (the row's ``max_abs_err`` in the ``kernels`` line is
+   theirs);
 8. holds the two LM kernels (``kernels/attention/csrc/flash_attention.cu``,
    ``kernels/ssd/csrc/ssd.cu``) against their plain versions at their shape
    classes, in f32 and bf16 (flash: Hymba-1.5B's local and global layers,
@@ -92,13 +100,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data-sheet peaks: HBM bandwidth, fp32 FMA rate without
-# tensor cores (an FMA counts 2 operations), and the fp32 rate of one-op
-# instructions such as a max (half the FMA flop rate)
+# NVIDIA H100 SXM data-sheet peaks: HBM bandwidth, the dense TF32 and bf16
+# tensor-core rates (a multiply-add counts 2 operations), and the fp32 rate
+# of one-op instructions such as a max (half the 67 TFLOP/s fp32 FMA rate)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12  # the peak for bf16 operands
 FP32_OPS_SIMPLE = 33.5e12
-BF16_FLOPS = 989e12  # dense bf16 tensor-core rate: the peak for bf16 operands
+# The card's fastest fp32-accurate rate, the peak for f32 operands: three
+# TF32 tensor-core products per multiply-add (hi*hi + hi*lo + lo*hi, the
+# split that meets the port's f32 pin: tests/test_torch_deconv_tc.py) beat
+# the 67 TFLOP/s of fp32 FMA
+FP32_ACCURATE_FLOPS = TF32_FLOPS / 3
 
 IMG, BASE = 256, 64  # the paper's full width: Pix2Pix 54,425,859 params, YOLOv8n
 DEVICE = "cuda"
@@ -191,11 +204,10 @@ def bound(name, a, bias=True):
     the call has one), gamma/beta (when it normalises) and the output, each
     once, over the HBM rate; 2*Cin ops per real tap per output channel plus
     bias, norm (3 statistics + 4 apply) and act ops per output over the
-    peak rate of the operands' type (fp32 FMA, or bf16 tensor cores); for
+    peak rate of the operands' type (``FP32_ACCURATE_FLOPS``, or bf16 tensor
+    cores); for
     SPPF, one max per real window tap beyond the first over the one-op fp32
     rate."""
-    import torch
-
     x = a["x"]
     B, H, W, C = x.shape
     esize = x.element_size()
@@ -220,8 +232,15 @@ def bound(name, a, bias=True):
     affine = cout * (int(bias) + 2 * int(norm))  # float32 bias, gamma, beta
     nbytes = esize * (B * ih * iw * C + out) + w.element_size() * kh * kw * C * cout + 4 * affine
     ops = 2 * C * cout * B * th * tw + out * (int(bias) + (7 if norm else 0) + ACT_OPS[a.get("act", "none")])
-    peak = BF16_FLOPS if x.dtype == torch.bfloat16 else FP32_FLOPS
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak_flops(x.dtype) * 1e3
+
+
+def peak_flops(dtype):
+    """The operations peak for operands of ``dtype``: bf16 tensor cores, or
+    the fp32-accurate 3xTF32 rate."""
+    import torch
+
+    return BF16_FLOPS if dtype == torch.bfloat16 else FP32_ACCURATE_FLOPS
 
 
 def library_fn(name, a):
@@ -323,6 +342,7 @@ class Bench:
         ms, host_ms = cuda_ms(kernel)
         plain_ms, plain_host_ms = cuda_ms(plain)
         library_ms, _ = cuda_ms(library_fn(name, a))
+        bound_ms = max(bytes_ms, ops_ms)
         return {
             "max_abs_err": err,
             "ms": ms,
@@ -332,8 +352,16 @@ class Bench:
             "library_ms": library_ms,
             "bytes_ms": bytes_ms,
             "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_ms": bound_ms,
+            "tflop_s": ops_ms * peak_flops(a["x"].dtype) / ms / 1e12,
+            "bound_share": bound_ms / ms,
         }
+
+
+def achieved(r):
+    """A row's achieved TFLOP/s (the bound's operation count over the
+    kernel's time) and its share of the bound."""
+    return f"{r['tflop_s']:.2f} TFLOP/s, {100 * r['bound_share']:.2f}% of the bound"
 
 
 def describe(name, a, bias):
@@ -632,15 +660,13 @@ def attention_pairs(Sq, Sk, causal, window):
 def lm_bound(name, a):
     """(bytes time, operations time) in ms for one LM kernel call: every
     input read once and every output written once over the HBM rate;
-    operations over the operands' peak (fp32 FMA, or bf16 tensor cores).
+    operations over the operands' peak (``peak_flops``).
     Flash attention: 4 D operations per (query, key) pair inside the mask
     (the score and its share of P.V), for each query head. The SSD scan, as
     the kernel chunks it (``SSD_STEP``): per chunk of L steps the L(L+1)/2
     causal pairs of C.B^T once per group (n multiply-adds each) and of the
     decayed mix once per head (p each), plus per step and head the
     inter-chunk read-out and the state update (p n each)."""
-    import torch
-
     if name == "flash_attention":
         q, k = a["q"], a["k"]
         B, Sq, Hq, D = q.shape
@@ -656,8 +682,7 @@ def lm_bound(name, a):
         pairs = sum(min(SSD_STEP, s - c) * (min(SSD_STEP, s - c) + 1) // 2 for c in range(0, s, SSD_STEP))
         ops = 2 * b * (g * pairs * n + h * pairs * p + 2 * h * s * p * n)
         dtype = x.dtype
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / peak_flops(dtype) * 1e3
 
 
 def lm_library_fn(name, a):
@@ -748,7 +773,7 @@ class LMBench:
         err = errs[0] if name == "flash_attention" else max(errs)
         bytes_ms, ops_ms = lm_bound(name, a)
         ms, host_ms = cuda_ms(kernel)
-        peak = BF16_FLOPS if bf16 else FP32_FLOPS
+        peak = BF16_FLOPS if bf16 else FP32_ACCURATE_FLOPS
         plain_ms, _ = cuda_ms(plain, reps=5)
         lib = lm_library_fn(name, a)
         library_ms = cuda_ms(lib)[0] if lib is not None else None
@@ -785,6 +810,49 @@ def flash_tc_report(log, smem_bytes):
             D = int(m.group(1))
             rows[D] = {**r, "dynamic_smem": smem_bytes(D)}
     return dict(sorted(rows.items()))
+
+
+def phase_report(log, smem_bytes):
+    """The phase GEMM and narrow instantiations of ``phase_gemm.cuh`` in a
+    build log: ptxas' registers and spills, and the dynamic shared memory a
+    launch asks for (``smem_bytes(esize, narrow, tile_rows)``; the narrow
+    kernel's at its largest tile, 8 input rows)."""
+    rows = {}
+    for fn, r in ptxas_report(log).items():
+        if m := re.search(r"phase_gemm_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E", fn):
+            f32, bm = m.group(1) == "f", int(m.group(2))
+            key = f"phase_gemm<{'f32' if f32 else 'bf16'},{bm},{'vec' if m.group(3) == '1' else 'scalar'}>"
+            rows[key] = {**r, "dynamic_smem": smem_bytes(4 if f32 else 2, 0, bm)}
+        elif m := re.search(r"narrow_kernelI(f|13__nv_bfloat16)Li(\d)E", fn):
+            key = f"narrow<{'f32' if m.group(1) == 'f' else 'bf16'},{m.group(2)}>"
+            rows[key] = {**r, "dynamic_smem": smem_bytes(0, 1, 8)}
+    return dict(sorted(rows.items()))
+
+
+# kernel name fragment -> the deconv_block pass it belongs to
+BLOCK_PASSES = (("phase_gemm_kernel", "gemm"), ("narrow_kernel", "narrow"), ("splitk_reduce", "split-K sum"),
+                ("stats_", "statistics"), ("norm_act", "normalise"))
+
+
+def device_split(torch, fn, reps=5):
+    """Device ms per call of ``fn``, by pass (``BLOCK_PASSES``), under
+    ``torch.profiler``; empty when the profiler recorded no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = next((k for frag, k in BLOCK_PASSES if frag in e.key), "other")
+        out[kind] = out.get(kind, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
 
 
 def describe_lm(name, a):
@@ -1140,6 +1208,16 @@ def main() -> int:
         print(f"flash_kernel_tc<{D}> (bf16): {r['registers']} registers, spill stores {r['spill_stores']} B, "
               f"spill loads {r['spill_loads']} B, shared memory {r['dynamic_smem']} B dynamic + "
               f"{r['static_smem']} B static")
+    phase_tc = {}
+    for mod in (deconv_kernel, kernel):
+        lib_name = Path(mod._SRC).name
+        phase_tc[lib_name] = phase_report(builds[kernel_mods.index(mod)]["log"],
+                                          deconv_kernel.library().deconv2d_smem_bytes)
+        if not phase_tc[lib_name]:
+            print(f"{lib_name}: no ptxas report of the phase kernels (the library was built before this run)")
+        for inst, r in phase_tc[lib_name].items():
+            print(f"{lib_name} {inst}: {r['registers']} registers, spill stores {r['spill_stores']} B, "
+                  f"spill loads {r['spill_loads']} B, shared memory {r['dynamic_smem']} B dynamic")
 
     bench = Bench(ops, ref, deconv_ops, deconv_ref)
     rows = []
@@ -1154,6 +1232,8 @@ def main() -> int:
             f"bound_ms={r['bound_ms']:.5f} "
             f"({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'})"
         )
+        if name == "deconv_block":
+            print(f"{'':13s} {achieved(r)}")
 
     print(f"-- every kernel call of one Pix2Pix + one YOLOv8 frame (img {IMG}, base {BASE})")
     calls = capture_main_path_calls(torch, ops, build_server, dev)
@@ -1171,6 +1251,7 @@ def main() -> int:
     fields = ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")
     totals = {n: dict.fromkeys(fields + ("max_abs_err",), 0.0) for n in REPLACES}
     pair = {n: dict.fromkeys(fields, 0.0) for n in REPLACES}
+    block_calls = []
     for key, cs in calls.items():
         groups = {}
         for name, a_, kw in cs:
@@ -1180,6 +1261,10 @@ def main() -> int:
         for (name, desc, _), (a, bias, count) in groups.items():
             r = bench.run(name, a, bias)
             rows.append({"phase": key, "kernel": name, "shape": desc, "count": count, **r})
+            if name == "deconv_block":
+                block_calls.append((desc, a, count))
+                print(f"deconv_block  {desc:45s} x{count}: kernel {r['ms']:.4f} ms ({achieved(r)}), library "
+                      f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f}, max_err {r['max_abs_err']:.2e}")
             for f in fields:
                 totals[name][f] += r[f] * count * frames[key]
                 pair[name][f] += r[f] * count
@@ -1191,6 +1276,9 @@ def main() -> int:
             f"{pair[n]['host_ms']:.4f}), plain {pair[n]['plain_ms']:.4f}, library "
             f"{pair[n]['library_ms']:.4f}, bound {pair[n]['bound_ms']:.5f}"
         )
+    blk = pair["deconv_block"]
+    print(f"{'':13s} deconv_block: {blk['ops_ms'] * FP32_ACCURATE_FLOPS / blk['ms'] / 1e12:.2f} TFLOP/s, "
+          f"{100 * blk['bound_ms'] / blk['ms']:.2f}% of the bound | {smi}")
     del calls
 
     print(f"-- main path: build_server(img={IMG}, base={BASE}, n_pix=2, n_yolo=1, impl='pallas')")
@@ -1248,18 +1336,30 @@ def main() -> int:
     print(f"outputs: {len(bundle.streams)} streams x 4 frames finite, shapes right, "
           f"max |served - xla run_all| = {worst:.2e} (atol 5e-3, rtol 1e-2); warm-up completions {warm_counts}")
 
+    # after the served run: the profiler's tracing must not tax its launches
+    block_split = {}
+    for desc, a, count in block_calls:
+        sp = device_split(torch, lambda: ops.deconv_block(**a))
+        block_split[desc] = sp
+        print(f"deconv_block  {desc:45s} device ms by pass (torch.profiler): "
+              + (", ".join(f"{k} {v:.4f}" for k, v in sp.items()) or "not measured (no kernel recorded)"))
+
     print("-- deconv2d vs its plain version, shape classes (ms on the card, CUDA events)")
-    deconv_err = 0.0
+    class_err = {}
     for name, a_, kw in deconv_classes(torch, dev):
         a, bias = bench.args(name, *a_, **kw)
         r = bench.run(name, a, bias)
-        deconv_err = max(deconv_err, r["max_abs_err"])
+        dt = str(a["x"].dtype)[6:]
+        class_err[dt] = max(class_err.get(dt, 0.0), r["max_abs_err"])
         rows.append({"phase": "deconv2d classes", "kernel": name, "shape": describe(name, a, bias), **r})
         print(
             f"{name:9s} {describe(name, a, bias):34s} max_err={r['max_abs_err']:.2e} kernel_ms={r['ms']:.4f} "
             f"(host {r['host_ms']:.4f}) plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.5f} ({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'})"
         )
+        print(f"{'':9s} {achieved(r)}")
+    for dt, e in class_err.items():
+        print(f"deconv2d classes, {dt}: max abs err {e:.3e} (pin {1e-4 if dt == 'float32' else 5e-2:g})")
 
     print(f"-- training at full width (img {IMG}, base {BASE}), TF32 off")
     cfg, trained, train_rows = train_phase(torch, smi, dev)
@@ -1267,17 +1367,22 @@ def main() -> int:
     print("-- main path: surgery + evaluation through the deconv2d kernel")
     deconv_launches, deconv_calls, eval_metrics = eval_phase(torch, deconv_ops, cfg, trained, dev)
     deconv_tot = dict.fromkeys(fields, 0.0)
+    deconv_err = 0.0  # the f32 main-path calls alone: the classes report theirs by dtype
     for name, a_, kw in deconv_calls:
         a, bias = bench.args(name, *a_, **kw)
         r = bench.run(name, a, bias)
         deconv_err = max(deconv_err, r["max_abs_err"])
         rows.append({"phase": "eval", "kernel": name, "shape": describe(name, a, bias), **r})
+        print(f"deconv2d {describe(name, a, bias):34s} kernel {r['ms']:.4f} ms ({achieved(r)}), library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f}, max_err {r['max_abs_err']:.2e}")
         for f in fields:
             deconv_tot[f] += r[f]
     print(
         f"deconv2d per generator forward (8 calls, batch 8): kernel {deconv_tot['ms']:.4f} ms on the card "
-        f"(host-issued {deconv_tot['host_ms']:.4f}), plain {deconv_tot['plain_ms']:.4f}, library "
-        f"{deconv_tot['library_ms']:.4f}, bound {deconv_tot['bound_ms']:.5f} | {smi}"
+        f"(host-issued {deconv_tot['host_ms']:.4f}; "
+        f"{deconv_tot['ops_ms'] * FP32_ACCURATE_FLOPS / deconv_tot['ms'] / 1e12:.2f} TFLOP/s, "
+        f"{100 * deconv_tot['bound_ms'] / deconv_tot['ms']:.2f}% of the bound), plain {deconv_tot['plain_ms']:.4f}, "
+        f"library {deconv_tot['library_ms']:.4f}, bound {deconv_tot['bound_ms']:.5f}, max_err {deconv_err:.2e} | {smi}"
     )
 
     print("-- LM kernels vs plain versions, shape classes (ms on the card, CUDA events)")
@@ -1293,7 +1398,7 @@ def main() -> int:
             f"({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'})"
         )
         if name == "flash_attention":
-            print(f"{'':15s} {r['tflop_s']:.2f} TFLOP/s, {100 * r['bound_share']:.2f}% of the bound")
+            print(f"{'':15s} {achieved(r)}")
         if "bf16_plain_vs_f32" in r:
             print(f"{'':15s} bf16 vs f32 plain on the same inputs: kernel {r['max_abs_err']:.3e}, plain bf16 "
                   f"(control) {r['bf16_plain_vs_f32']:.3e}; kernel vs plain bf16 {r['err_vs_same_dtype_ref']:.3e}; "
@@ -1314,7 +1419,7 @@ def main() -> int:
             lm_tot[name][f] += (r[f] or 0.0) * count
         lm_tot[name]["max_abs_err"] = max(lm_tot[name]["max_abs_err"], r["max_abs_err"])
         ctl = f" (plain bf16 {r['bf16_plain_vs_f32']:.2e}, |out| rms {r['out_rms']:.2e})" if "bf16_plain_vs_f32" in r else ""
-        rate = f" ({r['tflop_s']:.2f} TFLOP/s, {100 * r['bound_share']:.2f}% of the bound)" if name == "flash_attention" else ""
+        rate = f" ({achieved(r)})" if name == "flash_attention" else ""
         print(f"{name:15s} {describe_lm(name, a):52s} x{count}: kernel {r['ms']:.4f} ms{rate}, plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.5f}, max_err vs f32 {r['max_abs_err']:.2e}{ctl}")
     del lm_calls
@@ -1360,6 +1465,7 @@ def main() -> int:
         Path(args.json).write_text(json.dumps(
             {"card": smi, "rows": rows, "kernels": kernels, "report": rep, "per_frame_pair": pair,
              "train": train_rows, "eval": eval_metrics, "deconv2d_per_forward": deconv_tot,
+             "deconv2d_class_max_abs_err": class_err, "deconv_block_split": block_split, "phase_ptxas": phase_tc,
              "hymba_prefill": prefill_rows, "lm_per_prefill": lm_tot, "hymba_decode": decode_row,
              "flash_tc_ptxas": flash_tc,
              "seconds": time.perf_counter() - t_start}, indent=1, default=str))

@@ -4,8 +4,8 @@ check the tensors handed to it.
 Each kernel package keeps its source under ``csrc/`` and its build under
 ``build/`` next to it (listed in ``.gitignore``). ``build`` compiles the
 source with ``nvcc`` for ``sm_90a`` into a library with a plain C
-interface, named by the source's hash, at first use; ``load`` opens it
-with ``ctypes``. Nothing here runs when a module is imported, so the CPU
+interface, named by the hash of the source and every local header it
+includes, at first use; ``load`` opens it with ``ctypes``. Nothing here runs when a module is imported, so the CPU
 tests can import every kernel module on a machine without ``nvcc``.
 """
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -28,19 +29,52 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def local_sources(src: Path) -> list[Path]:
+    """``src`` and every file its ``#include "..."`` lines reach, followed
+    recursively (a quoted name is looked up next to the file that names it,
+    then in ``src``'s directory, nvcc's order with ``-I`` that directory),
+    each once, in the order first reached."""
+    seen, todo = [], [src.resolve()]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        for name in _INCLUDE.findall(f.read_bytes()):
+            for base in (f.parent, src.resolve().parent):
+                cand = (base / name.decode()).resolve()
+                if cand.is_file():
+                    todo.append(cand)
+                    break
+    return seen
+
+
+def library_path(src: Path, build_dir: Path) -> Path:
+    """Where ``build`` puts ``src``'s library: named by a hash of the source
+    and the local headers it includes, so that an edit to either builds
+    anew."""
+    h = hashlib.sha256()
+    for f in local_sources(src):
+        h.update(f.read_bytes())
+    return build_dir / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
 def build(src: Path, build_dir: Path) -> dict:
     """Compile ``src`` if this content has not been built yet. Returns
     ``{"path", "seconds", "log"}``; ``log`` holds ptxas' register and
     shared-memory report of a fresh build (empty when the library was
     already there)."""
-    so = build_dir / f"lib{src.stem}_{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
+    so = library_path(src, build_dir)
     if so.exists():
         return {"path": str(so), "seconds": 0.0, "log": ""}
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src),
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(src.parent), "-o", str(tmp), str(src),
     ]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, capture_output=True, text=True)

@@ -29,14 +29,13 @@
 //   Replaces: repro/kernels/fused/kernel.py, deconv_block_pallas
 //   (_deconv_block_kernel, reusing repro/kernels/deconv/kernel.py
 //   _phase_matmuls).
-//   Bound on this card: as conv_block (fp32 FMA for the wide up blocks, weight
-//   bytes for the 1x1 and 2x2 ones).
-//   Design: output stationary. Output pixel (2u+a, 2v+b) of the k4/s2 deconv
-//   with the torch padding=1 crop folded in is the sum over its parity phase's
-//   2x2 taps th in {a, a+2}, tw in {b, b+2} of x[u+a+i-1, v+b+j-1] * w[th, tw]
-//   (th = a+2i, tw = b+2j): four GEMMs of M = B*H*W, K = 4*Cin, one per phase
-//   (grid z), through the same tiled GEMM as conv_block; no zero is ever
-//   inserted. Then the same (b)/(c) passes.
+//   Bound on this card: weight bytes for the 1x1..8x8 up blocks at batch 1,
+//   operations for the wide ones, bytes for the Cout-3 final layer.
+//   Design: the k4/s2 crop-1 deconv is the phase GEMM of
+//   ../../deconv/csrc/phase_gemm.cuh, which deconv2d.cu launches too (four
+//   parity-phase GEMMs of M = B*H*W, K = 4*Cin on the tensor cores, 3xTF32,
+//   bias and, without a norm, the act in the epilogue), or for Cout <= 4 its
+//   phase-fused narrow kernel; then the same (b)/(c) passes as conv_block.
 //
 // sppf_pyramid (sppf_pyramid_f32 / sppf_pyramid_bf16)
 //   Replaces: repro/kernels/fused/kernel.py, sppf_pyramid_pallas (_sppf_kernel).
@@ -53,39 +52,35 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "../../deconv/csrc/phase_gemm.cuh"
+
 namespace {
+
+using phase_gemm::ACT_NONE;
+using phase_gemm::activate;
+using phase_gemm::from_f;
+using phase_gemm::grid_for;
+using phase_gemm::to_f;
 
 constexpr int BM = 64;
 constexpr int BN = 64;
 constexpr int BK = 16;
 constexpr int GEMM_THREADS = 256;
 
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_LRELU = 2, ACT_SILU = 3, ACT_TANH = 4 };
 enum { NORM_NONE = 0, NORM_BATCH = 1, NORM_INSTANCE = 2, NORM_GROUP = 3 };
-
-__device__ __forceinline__ float activate(float y, int act) {
-  switch (act) {
-    case ACT_RELU: return fmaxf(y, 0.f);
-    case ACT_LRELU: return y >= 0.f ? y : 0.2f * y;
-    case ACT_SILU: return y / (1.f + expf(-y));
-    case ACT_TANH: return tanhf(y);
-    default: return y;
-  }
-}
 
 struct ConvGeom {
   int B, H, W, Cin, Cout, k, stride, pad, Ho, Wo;
-  int gh, gw;        // the per-phase output grid: (Ho, Wo) for conv, (H, W) for deconv
-  int Mp;            // GEMM rows per phase: B * gh * gw
+  int gh, gw;        // the GEMM's output grid: (Ho, Wo)
+  int Mp;            // GEMM rows: B * gh * gw
   int Mtot;          // output rows: B * Ho * Wo
-  int K;             // k*k*Cin for conv, 4*Cin for deconv
+  int K;             // k*k*Cin
   int kt_per_split;  // K tiles each split of K covers
   int splitk;
 };
 
-// One 64x64 output tile of one phase and one split of K. 256 threads, each
+// One 64x64 output tile and one split of K. 256 threads, each
 // accumulating a 4x4 micro-tile in registers.
-template <bool DECONV>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
             const float* __restrict__ bias, float* __restrict__ out, ConvGeom g, int act) {
@@ -95,9 +90,7 @@ gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int phase = DECONV ? (int)blockIdx.z / g.splitk : 0;
-  const int split = (int)blockIdx.z - phase * g.splitk;
-  const int pa = phase >> 1, pb = phase & 1;
+  const int split = (int)blockIdx.z;
 
   // A loads: 16 consecutive threads walk 16 consecutive K indices (channels)
   const int a_k = tid % BK;
@@ -114,13 +107,8 @@ gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int oh = r / g.gw;
     const int ow = r - oh * g.gw;
     a_base[j] = b * g.H * g.W * g.Cin;
-    if (DECONV) {
-      a_ih[j] = oh + pa - 1;
-      a_iw[j] = ow + pb - 1;
-    } else {
-      a_ih[j] = oh * g.stride - g.pad;
-      a_iw[j] = ow * g.stride - g.pad;
-    }
+    a_ih[j] = oh * g.stride - g.pad;
+    a_iw[j] = ow * g.stride - g.pad;
   }
   // B loads: 64 consecutive threads walk 64 consecutive output channels
   const int b_n = tid % BN;
@@ -143,14 +131,8 @@ gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const bool kok = kk < g.K;
       const int tap = kok ? kk / g.Cin : 0;
       const int ci = kk - tap * g.Cin;
-      int di, dj;
-      if (DECONV) {
-        di = tap >> 1;
-        dj = tap & 1;
-      } else {
-        di = tap / g.k;
-        dj = tap - di * g.k;
-      }
+      const int di = tap / g.k;
+      const int dj = tap - di * g.k;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int ih = a_ih[j] + di, iw = a_iw[j] + dj;
@@ -166,16 +148,7 @@ gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int kk = kbase + kr;
       const int n = n0 + b_n;
       float v = 0.f;
-      if (kk < g.K && n < g.Cout) {
-        int row = kk;
-        if (DECONV) {
-          const int tap = kk / g.Cin;
-          const int ci = kk - tap * g.Cin;
-          const int th = pa + 2 * (tap >> 1), tw = pb + 2 * (tap & 1);
-          row = (th * 4 + tw) * g.Cin + ci;
-        }
-        v = w[(size_t)row * g.Cout + n];
-      }
+      if (kk < g.K && n < g.Cout) v = w[(size_t)kk * g.Cout + n];
       Bs[kr][b_n] = v;
     }
     __syncthreads();
@@ -198,14 +171,7 @@ gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
     if (m >= g.Mp) continue;
-    int orow = m;
-    if (DECONV) {
-      const int b = m / (g.H * g.W);
-      const int r = m - b * g.H * g.W;
-      const int u = r / g.W;
-      const int v = r - u * g.W;
-      orow = (b * g.Ho + 2 * u + pa) * g.Wo + 2 * v + pb;
-    }
+    const int orow = m;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
@@ -215,17 +181,6 @@ gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
       else
         out[((size_t)split * g.Mtot + orow) * g.Cout + n] = acc[i][j];
     }
-  }
-}
-
-// Sum the K splits in a fixed order, add the bias, activate. Element
-// indices fit in int: the wrapper refuses tensors of 2^31 elements or more.
-__global__ void splitk_reduce_kernel(const float* __restrict__ part, const float* __restrict__ bias,
-                                     float* __restrict__ y, int splitk, int total, int C, int act) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splitk; ++z) s += part[(size_t)z * total + i];
-    y[i] = activate(s + bias[i % C], act);
   }
 }
 
@@ -314,19 +269,6 @@ __global__ void norm_act_kernel(float* __restrict__ y, const float* __restrict__
   }
 }
 
-int grid_for(int total) {
-  const int blocks = (total + 255) / 256;
-  return blocks < 132 * 16 ? (blocks ? blocks : 1) : 132 * 16;
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // exact: v is one of the bfloat16 inputs
-}
-
 template <typename T>
 __global__ void sppf_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int C,
                             int ct, int window, int reps) {
@@ -389,8 +331,12 @@ extern "C" {
 
 const char* fused_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// conv (deconv = 0): (B,H,W,Cin) * (k,k,Cin,Cout), stride, pad -> (B,Ho,Wo,Cout).
-// deconv (deconv = 1): (B,H,W,Cin) * (4,4,Cin,Cout), k4/s2, crop 1 -> (B,2H,2W,Cout).
+// conv (deconv = 0): (B,H,W,Cin) * (k,k,Cin,Cout), stride, pad -> (B,Ho,Wo,Cout);
+// splitk splits of kt_per_split K tiles each.
+// deconv (deconv = 1): (B,H,W,Cin) * (4,4,Cin,Cout), k4/s2, crop 1 -> (B,2H,2W,Cout):
+// narrow: phase_gemm.cuh's phase-fused kernel (Cout <= 4), tile_rows input
+// rows per block; else its phase GEMM, tile_rows (64 or 128) rows per tile,
+// vec: 16-byte staging; splitk splits of kt_per_split live K tiles each.
 // part: splitk * B*Ho*Wo*Cout floats when splitk > 1, else unused.
 // stats: 3*sets*chunks*Cout + 2*sets*G floats when norm != none, else unused,
 // with sets = (norm == batch ? 1 : B) and G = (norm == group ? groups : Cout).
@@ -398,35 +344,39 @@ int fused_conv_block_f32(const float* x, const float* w, const float* bias, cons
                          const float* beta, float* y, float* part, float* stats, int B, int H,
                          int W, int Cin, int Cout, int k, int stride, int pad, int deconv,
                          int norm, int groups, int act, float eps, int splitk, int kt_per_split,
-                         int chunks, void* stream_ptr) {
+                         int chunks, int narrow, int tile_rows, int vec, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   ConvGeom g;
   g.B = B; g.H = H; g.W = W; g.Cin = Cin; g.Cout = Cout; g.k = k; g.stride = stride; g.pad = pad;
   if (deconv) {
-    g.Ho = 2 * H; g.Wo = 2 * W; g.gh = H; g.gw = W; g.K = 4 * Cin;
+    g.Ho = 2 * H; g.Wo = 2 * W;
   } else {
     g.Ho = (H + 2 * pad - k) / stride + 1; g.Wo = (W + 2 * pad - k) / stride + 1;
-    g.gh = g.Ho; g.gw = g.Wo; g.K = k * k * Cin;
   }
+  g.gh = g.Ho; g.gw = g.Wo; g.K = k * k * Cin;
   g.Mp = B * g.gh * g.gw;
   g.Mtot = B * g.Ho * g.Wo;
   g.splitk = splitk;
   g.kt_per_split = kt_per_split;
   const int epi_act = norm == NORM_NONE ? act : ACT_NONE;
-  dim3 grid((g.Mp + BM - 1) / BM, (Cout + BN - 1) / BN, (deconv ? 4 : 1) * splitk);
-  float* gemm_out = splitk > 1 ? part : y;
-  if (deconv)
-    gemm_kernel<true><<<grid, GEMM_THREADS, 0, stream>>>(x, w, bias, gemm_out, g, epi_act);
-  else
-    gemm_kernel<false><<<grid, GEMM_THREADS, 0, stream>>>(x, w, bias, gemm_out, g, epi_act);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
   const int total = g.Mtot * Cout;
-  if (splitk > 1) {
-    splitk_reduce_kernel<<<grid_for(total), 256, 0, stream>>>(part, bias, y, splitk, total, Cout,
-                                                               epi_act);
+  int err;
+  if (deconv) {
+    const phase_gemm::PhaseGeom pg = phase_gemm::make_geom(B, H, W, Cin, Cout, splitk, kt_per_split, epi_act);
+    err = narrow ? phase_gemm::launch_narrow<float>(x, w, bias, y, pg, tile_rows, stream)
+                 : phase_gemm::launch_phase_gemm<float>(x, w, bias, y, part, pg, tile_rows, vec, stream);
+    if (err) return err;
+  } else {
+    dim3 grid((g.Mp + BM - 1) / BM, (Cout + BN - 1) / BN, splitk);
+    gemm_kernel<<<grid, GEMM_THREADS, 0, stream>>>(x, w, bias, splitk > 1 ? part : y, g, epi_act);
     err = (int)cudaGetLastError();
     if (err) return err;
+    if (splitk > 1) {
+      phase_gemm::splitk_reduce_kernel<float><<<grid_for(total), 256, 0, stream>>>(part, bias, y, splitk,
+                                                                                    total, Cout, epi_act);
+      err = (int)cudaGetLastError();
+      if (err) return err;
+    }
   }
   if (norm == NORM_NONE) return 0;
   const int sets = norm == NORM_BATCH ? 1 : B;

@@ -1,4 +1,6 @@
-"""Build and bind the hand-written CUDA kernels in ``csrc/fused_blocks.cu``.
+"""Build and bind the hand-written CUDA kernels in ``csrc/fused_blocks.cu``
+(its deconv_block launches ``deconv/csrc/phase_gemm.cuh``'s kernels, with
+the launch ``deconv.kernel.phase_geometry`` chooses).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (``build()``, through
@@ -21,6 +23,7 @@ import torch
 
 from .. import _build
 from .._build import require
+from ..deconv.kernel import phase_geometry
 
 _SRC = Path(__file__).parent / "csrc" / "fused_blocks.cu"
 _BUILD_DIR = Path(__file__).parent / "build"
@@ -28,7 +31,7 @@ _BUILD_DIR = Path(__file__).parent / "build"
 NORMS = {"none": 0, "batch": 1, "instance": 2, "group": 3}
 ACTS = {"none": 0, "relu": 1, "lrelu": 2, "silu": 3, "tanh": 4}
 
-# GEMM tile of the conv kernels (BM x BN output tile, BK deep K tile)
+# GEMM tile of the conv kernel (BM x BN output tile, BK deep K tile)
 _BM, _BN, _BK = 64, 64, 16
 # blocks wanted in flight: two per SM of an H100
 _TARGET_BLOCKS = 2 * 132
@@ -45,7 +48,7 @@ def build() -> dict:
 def library() -> ctypes.CDLL:
     lib = _build.load(_SRC, _BUILD_DIR)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_conv_block_f32.argtypes = [p] * 8 + [i] * 12 + [f] + [i] * 3 + [p]
+    lib.fused_conv_block_f32.argtypes = [p] * 8 + [i] * 12 + [f] + [i] * 6 + [p]
     lib.fused_conv_block_f32.restype = i
     for name in ("sppf_pyramid_f32", "sppf_pyramid_bf16"):
         getattr(lib, name).argtypes = [p, p] + [i] * 7 + [p]
@@ -60,14 +63,12 @@ def _check(lib, err: int, what: str):
         raise RuntimeError(f"{what} launch failed: {lib.fused_error_string(err).decode()} ({err})")
 
 
-def gemm_split(
-    rows: int, cout: int, k_total: int, phases: int = 1, bm: int = _BM, bn: int = _BN
-) -> tuple[int, int]:
-    """``(splitk, k_tiles_per_split)`` for a conv GEMM of ``bm x bn`` output
-    tiles and ``_BK``-deep K tiles: layers with too few output tiles to
-    fill the card (the deep 1x1/2x2 Pix2Pix layers) split K over more
+def gemm_split(rows: int, cout: int, k_total: int) -> tuple[int, int]:
+    """``(splitk, k_tiles_per_split)`` for the conv GEMM's ``_BM x _BN``
+    output tiles and ``_BK``-deep K tiles: layers with too few output tiles
+    to fill the card (the deep 1x1/2x2 Pix2Pix layers) split K over more
     blocks, each split at least 8 K tiles deep."""
-    tiles = math.ceil(rows / bm) * math.ceil(cout / bn) * phases
+    tiles = math.ceil(rows / _BM) * math.ceil(cout / _BN)
     nkt = math.ceil(k_total / _BK)
     split = 1
     if tiles < _TARGET_BLOCKS:
@@ -101,11 +102,14 @@ def conv_block_cuda(x, w, b, gamma, beta, *, stride, padding, norm, groups, act,
     if deconv:
         if k != 4:
             raise ValueError(f"deconv_block is the k=4 stride-2 crop-1 deconv; got k={k}")
-        Ho, Wo, rows_per_phase, k_total, phases = 2 * H, 2 * W, B * H * W, 4 * Cin, 4
+        Ho, Wo = 2 * H, 2 * W
+        geo = phase_geometry(B, H, W, Cin, Cout, 4, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+        narrow, tile_rows, vec, splitk, per = geo.narrow, geo.tile_rows, geo.vec, geo.splitk, geo.per
     else:
         Ho = (H + 2 * padding - k) // stride + 1
         Wo = (W + 2 * padding - k) // stride + 1
-        rows_per_phase, k_total, phases = B * Ho * Wo, k * k * Cin, 1
+        narrow, tile_rows, vec = False, 0, False
+        splitk, per = gemm_split(B * Ho * Wo, Cout, k * k * Cin)
     if Ho < 1 or Wo < 1:
         raise ValueError(f"empty output for input {tuple(x.shape)}, k={k}, stride={stride}")
     if max(x.numel(), B * Ho * Wo * Cout) >= 2**31:
@@ -114,7 +118,6 @@ def conv_block_cuda(x, w, b, gamma, beta, *, stride, padding, norm, groups, act,
     if Cout % G:
         raise ValueError(f"groups {G} must divide Cout {Cout}")
     y = torch.empty((B, Ho, Wo, Cout), dtype=torch.float32, device=x.device)
-    splitk, per = gemm_split(rows_per_phase, Cout, k_total, phases)
     part = (
         torch.empty((splitk, B * Ho * Wo * Cout), dtype=torch.float32, device=x.device)
         if splitk > 1
@@ -135,7 +138,8 @@ def conv_block_cuda(x, w, b, gamma, beta, *, stride, padding, norm, groups, act,
             y.data_ptr(), None if part is None else part.data_ptr(),
             None if stats is None else stats.data_ptr(),
             B, H, W, Cin, Cout, k, stride, padding, int(deconv), NORMS[norm], G, ACTS[act],
-            float(eps), splitk, per, chunks, torch.cuda.current_stream().cuda_stream,
+            float(eps), splitk, per, chunks, int(narrow), tile_rows, int(vec),
+            torch.cuda.current_stream().cuda_stream,
         )
     _check(lib, err, "deconv_block" if deconv else "conv_block")
     return y

@@ -209,7 +209,7 @@ def test_smoke_bound_for_the_lm_kernels():
     (4 D per pair for attention; the scan's chunked multiply-adds) over the
     operands' peak."""
     smoke = _smoke()
-    for dtype, esize, peak in ((torch.float32, 4, smoke.FP32_FLOPS), (torch.bfloat16, 2, smoke.BF16_FLOPS)):
+    for dtype, esize, peak in ((torch.float32, 4, smoke.FP32_ACCURATE_FLOPS), (torch.bfloat16, 2, smoke.BF16_FLOPS)):
         q, k = torch.zeros(2, 64, 4, 32, dtype=dtype), torch.zeros(2, 64, 2, 32, dtype=dtype)
         bytes_ms, ops_ms = smoke.lm_bound("flash_attention", dict(q=q, k=k, v=k, causal=True, window=16))
         pairs = smoke.attention_pairs(64, 64, True, 16)

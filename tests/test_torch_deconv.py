@@ -83,18 +83,25 @@ def test_deconv2d_cpu_takes_plain_version_without_counting():
     ],
 )
 def test_launch_geometry_covers_k_exactly_once(B, H, W, cin, cout, narrow):
-    """The main path's shapes: the N tile follows Cout, and the K splits
-    cover the 4*Cin reduction without gap or empty split."""
-    got_narrow, split, per = kernel.launch_geometry(B, H, W, cin, cout)
-    nkt = -(-4 * cin // 16)
-    assert got_narrow == narrow
-    assert split >= 1 and (split - 1) * per < nkt <= split * per
+    """The main path's shapes: Cout <= 4 takes the narrow kernel, and the
+    phase GEMM's K splits cover the live K tiles (those whose taps reach an
+    input for some row: a quarter of them at 1x1) without gap or empty
+    split."""
+    geo = kernel.phase_geometry(B, H, W, cin, cout)
+    assert geo.narrow == narrow
+    if narrow:
+        return
+    nkt = kernel.live_k_tiles(H, W, cin, kernel.phase_bk(4))
+    assert nkt == -(-4 * cin // kernel.phase_bk(4)) // (4 if H == W == 1 else 1)
+    assert geo.splitk >= 1 and (geo.splitk - 1) * geo.per < nkt <= geo.splitk * geo.per
 
 
 def test_smoke_bound_counts_real_taps_and_the_operand_type():
     """chip_smoke's bound for deconv2d: at a 1x1 input each of the 4
     outputs reads one tap, so 4 of the 16 weight slices; bf16 operands are
-    held to the bf16 tensor-core peak."""
+    held to the bf16 tensor-core peak, f32 operands to the fp32-accurate
+    rate of three TF32 tensor-core products per multiply-add (495/3
+    TFLOP/s)."""
     import importlib.util
     from pathlib import Path
 
@@ -103,7 +110,8 @@ def test_smoke_bound_counts_real_taps_and_the_operand_type():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     cin, cout = 8, 5
-    for dtype, esize, peak in ((torch.float32, 4, smoke.FP32_FLOPS), (torch.bfloat16, 2, smoke.BF16_FLOPS)):
+    assert smoke.FP32_ACCURATE_FLOPS == pytest.approx(495e12 / 3, rel=1e-12)
+    for dtype, esize, peak in ((torch.float32, 4, smoke.FP32_ACCURATE_FLOPS), (torch.bfloat16, 2, smoke.BF16_FLOPS)):
         a = dict(x=torch.zeros(1, 1, 1, cin, dtype=dtype), w=torch.zeros(4, 4, cin, cout, dtype=dtype), b=torch.zeros(cout))
         bytes_ms, ops_ms = smoke.bound("deconv2d", a, bias=True)
         want_bytes = esize * (cin + 4 * cout + 4 * cin * cout) + 4 * cout
@@ -166,7 +174,9 @@ def test_serving_and_eval_unaffected_by_the_grad_guard():
 @pytest.mark.cuda
 def test_cuda_deconv2d_matches_plain_version_on_card():
     """The kernel against its plain version on the card (TF32 off), at the
-    JAX cases and the generator's deep, wide and narrow shapes. In bf16 the
+    JAX cases, the generator's deep, wide and narrow shapes, a Cin % 32 != 0
+    case off the 16-byte staging, the 128-row tile, and the Cout-3 layer at
+    batch 8 (the narrow kernel's 4-row blocks). In bf16 the
     kernel rounds its fp32 sum once and the plain version (cuDNN, then the
     bias add) may round elsewhere: one bf16 ulp (2^-7 relative) apart on
     top of the 5e-2 pin."""
@@ -174,7 +184,10 @@ def test_cuda_deconv2d_matches_plain_version_on_card():
         pytest.skip("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    cases = DECONV_CASES + [(1, 1, 1, 512, 512), (2, 2, 2, 1024, 512), (1, 64, 64, 128, 3)]
+    cases = DECONV_CASES + [
+        (1, 1, 1, 512, 512), (2, 2, 2, 1024, 512), (1, 64, 64, 128, 3),
+        (2, 8, 8, 40, 64), (4, 64, 64, 64, 64), (8, 128, 128, 128, 3),
+    ]
     ops.reset_launches()
     n = 0
     for B, H, W, cin, cout in cases:
