@@ -10,26 +10,30 @@ toolkit, this
    hand-written kernels of ``src/repro_torch/kernels/*/csrc`` with nvcc,
    one process per source, all at once; prints ptxas' registers, spills and
    shared memory of the tensor-core instantiations (``flash_tc_report``,
-   ``phase_report``);
+   ``phase_report``, ``ssd_report``);
 2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shape classes (TF32 off; f32 conv/deconv max abs error
-   <= 1e-4, SPPF bit-exact), timing kernel, plain version, a library
-   composition (cuDNN conv + torch norm + act, or 3x max_pool2d + cat) and
-   the bound (see ``bound``) — device times from calls queued ahead of the
-   card, host times from a synchronised loop (see ``cuda_ms``); each
-   deconv_block row also gives its achieved TFLOP/s and share of the bound
-   (``achieved``);
+   main path's shape classes, conv/deconv blocks also in bf16 (TF32 off;
+   max abs error <= 1e-4 in f32, <= 5e-2 in bf16, SPPF bit-exact), timing
+   kernel, plain version, a library composition (cuDNN conv + torch norm +
+   act, or 3x max_pool2d + cat) and the bound (see ``bound``) — device
+   times from calls queued ahead of the card, host times from a
+   synchronised loop (see ``cuda_ms``); each deconv_block row also gives
+   its achieved TFLOP/s and share of the bound (``achieved``);
 3. captures every kernel call of one Pix2Pix and one YOLOv8 frame on the
-   ``pallas_fused`` path at full width (img 256, base 64), checks and times
-   each distinct call the same way, and splits each deconv_block call's
-   device time between its passes (GEMM, split-K sum, statistics,
-   normalise: ``device_split``);
+   ``pallas_fused`` path at full width (img 256, base 64) and checks and
+   times each distinct call the same way;
 4. serves 4 frames on each of 2 Pix2Pix and 1 YOLOv8 streams through
    ``repro_torch.serve.build_server(impl="pallas")`` with the launch
    counters set to 0 just before, requires exactly 316 conv_block, 64
    deconv_block and 4 sppf_pyramid launches, and holds every output against
    the same model's ``run_all`` on the plain (``xla``) ops on the card
-   (atol 5e-3, rtol 1e-2);
+   (atol 5e-3, rtol 1e-2); then splits each conv_block and deconv_block
+   call's device time between its passes (GEMM, split-K sum, statistics,
+   normalise: ``device_split``), summed over the served run; then runs one
+   frame each through full-width Pix2Pix and YOLOv8n with bf16 activations
+   on the fused kernels, the counters set to 0 just before each (exactly 71
+   conv_block, 8 deconv_block and 1 sppf_pyramid launches), against the
+   plain ops (``bf16_forward_phase``);
 5. holds the ``deconv2d`` kernel (``kernels/deconv/csrc``) against its plain
    version at the generator's 8 up-sampling shape classes, a B=8 case and a
    bf16 case (max abs error <= 1e-4 in f32, <= 5e-2 in bf16, reported by
@@ -56,12 +60,12 @@ toolkit, this
    package's pins (flash atol 3e-4 f32 / 4e-2 bf16, and bf16 also within
    one bf16 ulp of the output of the f32 plain version on the same inputs,
    ``FLASH_BF16_RTOL``; SSD y and final state atol 3e-3 / 0.15 with rtol
-   2e-2, against the plain version in f32 on the same inputs), timing kernel, plain version, library call (SDPA with the
-   boolean mask; none for softcap or the scan) and bound; each flash row
-   also gives its achieved TFLOP/s (the bound's operation count over the
-   kernel's time) and its share of the bound, and the build step prints
-   ptxas' registers, spills and shared memory of the bf16 flash
-   instantiations (``ptxas_report``);
+   2e-2, against the plain version in f32 on the same inputs), timing
+   kernel, plain version, library call (SDPA with the boolean mask; none
+   for softcap or the scan) and bound; each flash row also gives its
+   achieved TFLOP/s (the bound's operation count over the kernel's time)
+   and its share of the bound, each SSD row its device time by pass
+   (``SSD_PASSES``);
 9. serves Hymba-1.5B's prefill at full width: 1,589,773,120 random
    parameters from a ``torch.Generator`` on the card, ``make_lm_prefill`` on
    2 x 4096 seeded tokens with f32 and with the config's bf16 activations,
@@ -71,7 +75,7 @@ toolkit, this
    the card (``PREFILL_F32_TOL``); ms per prefill, tokens/s, peak memory,
    the bf16 prefill's device time by kind of kernel and idle share
    (``torch.profiler``); the calls of one prefill checked and timed by
-   shape, as in 8;
+   shape, as in 8, the SSD call also split by pass;
 10. decodes at full width: ``decode_step`` over a 16-token prompt with f32
    activations and caches against ``__call__`` at the same positions
    (atol 5e-2, rtol 1e-2), then ``greedy_generate`` with batch 4, prompt 16
@@ -130,7 +134,10 @@ LM_KERNELS = {  # name -> (source, the TPU kernel it replaces)
                         "src/repro/kernels/attention/kernel.py:80"),
     "ssd": ("src/repro_torch/kernels/ssd/csrc/ssd.cu", "src/repro/kernels/ssd/kernel.py:67"),
 }
-SSD_STEP = 64  # the SSD kernel's own chunk (T in csrc/ssd.cu)
+# The bound's chunk for the SSD scan: its work is counted at 64-step chunks
+# whatever chunk the kernels or the caller use, so that bounds stay
+# comparable across kernel designs
+SSD_STEP = 64
 HYMBA_PARAMS = 1_589_773_120
 PREFILL_B, PREFILL_S = 2, 4096
 # The bf16 flash kernel reads bf16 and accumulates in fp32: Q.K^T of bf16
@@ -244,7 +251,8 @@ def peak_flops(dtype):
 
 
 def library_fn(name, a):
-    """One torch composition of the same function (a yardstick only)."""
+    """One torch composition of the same function (a yardstick only); w in
+    x's dtype, as the ops cast it."""
     import torch
     import torch.nn.functional as F
 
@@ -260,19 +268,19 @@ def library_fn(name, a):
 
         return sppf
     if name == "deconv2d":
-        w = a["w"].flip(0, 1).permute(2, 3, 0, 1).contiguous()
+        w = a["w"].to(x.dtype).flip(0, 1).permute(2, 3, 0, 1).contiguous()
         b = None if a["b"] is None else a["b"].to(x.dtype)
         return lambda: F.conv_transpose2d(x, w, b, stride=2, padding=1)
     if name == "deconv_block":
-        w = a["w"].flip(0, 1).permute(2, 3, 0, 1).contiguous()
+        w = a["w"].to(x.dtype).flip(0, 1).permute(2, 3, 0, 1).contiguous()
 
         def conv():
-            return F.conv_transpose2d(x, w, a["b"], stride=2, padding=1)
+            return F.conv_transpose2d(x, w, a["b"].to(x.dtype), stride=2, padding=1)
     else:
-        w = a["w"].permute(3, 2, 0, 1).contiguous()
+        w = a["w"].to(x.dtype).permute(3, 2, 0, 1).contiguous()
 
         def conv():
-            return F.conv2d(x, w, a["b"], stride=a["stride"], padding=a["padding"])
+            return F.conv2d(x, w, a["b"].to(x.dtype), stride=a["stride"], padding=a["padding"])
 
     act = {"none": lambda y: y, "relu": F.relu, "lrelu": lambda y: F.leaky_relu(y, 0.2),
            "silu": F.silu, "tanh": torch.tanh}[a["act"]]
@@ -372,33 +380,38 @@ def describe(name, a, bias):
         return f"{x}->{a['w'].shape[-1]}{' +b' if bias else ''} {str(a['x'].dtype)[6:]}"
     w = a["w"]
     conv = "" if name == "deconv_block" else f" k{w.shape[0]}s{a['stride']}p{a['padding']}"
-    return f"{x}->{w.shape[-1]}{conv}{' +b' if bias else ''} {a['norm']}/{a['act']}"
+    dt = "" if str(a["x"].dtype) == "torch.float32" else f" {str(a['x'].dtype)[6:]}"
+    return f"{x}->{w.shape[-1]}{conv}{' +b' if bias else ''} {a['norm']}/{a['act']}{dt}"
 
 
 def shape_classes(torch, dev):
     """One call per main-path shape class (first/deep Pix2Pix down blocks,
     YOLOv8 stem, 1x1 and head convs, the bottleneck/wide/final up blocks,
-    SPPF) plus a B=2 batch-norm case, on random inputs."""
+    SPPF) plus a B=2 batch-norm case, on random inputs; then the conv and
+    deconv classes again in bf16 (x and w bf16, bias/gamma/beta f32), with a
+    Cout-4 deconv with a norm (the phase GEMM writing fp32, not the narrow
+    kernel)."""
     g = torch.Generator(dev).manual_seed(0)
 
     def t(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    def conv(x, k, s, p, cout, norm, act, bias=False):
+    def conv(x, k, s, p, cout, norm, act, bias=False, dtype=torch.float32):
         cin = x[-1]
         w = t(k, k, cin, cout, scale=math.sqrt(2.0 / (k * k * cin)))
         kw = dict(stride=s, padding=p, norm=norm, act=act, gamma=1 + 0.1 * t(cout), beta=0.1 * t(cout))
         if bias:
             kw["b"] = 0.1 * t(cout)
-        return ("conv_block", (t(*x), w), kw)
+        return ("conv_block", (t(*x).to(dtype), w.to(dtype)), kw)
 
-    def deconv(x, cout, norm, act, bias=False):
+    def deconv(x, cout, norm, act, bias=False, dtype=torch.float32):
         w = t(4, 4, x[-1], cout, scale=math.sqrt(2.0 / (16 * x[-1])))
         kw = dict(norm=norm, act=act, gamma=1 + 0.1 * t(cout), beta=0.1 * t(cout))
         if bias:
             kw["b"] = 0.1 * t(cout)
-        return ("deconv_block", (t(*x), w), kw)
+        return ("deconv_block", (t(*x).to(dtype), w.to(dtype)), kw)
 
+    bf16 = torch.bfloat16
     return [
         conv((1, 256, 256, 3), 4, 2, 1, 64, "none", "lrelu"),
         conv((1, 128, 128, 64), 4, 2, 1, 128, "batch", "lrelu"),
@@ -411,6 +424,17 @@ def shape_classes(torch, dev):
         deconv((1, 64, 64, 256), 64, "batch", "relu"),
         deconv((1, 128, 128, 128), 3, "none", "tanh", bias=True),
         ("sppf_pyramid", (t(1, 8, 8, 128),), {}),
+        conv((1, 256, 256, 3), 4, 2, 1, 64, "none", "lrelu", dtype=bf16),
+        conv((1, 128, 128, 64), 4, 2, 1, 128, "batch", "lrelu", dtype=bf16),
+        conv((1, 2, 2, 512), 4, 2, 1, 512, "batch", "lrelu", dtype=bf16),
+        conv((1, 256, 256, 3), 3, 2, 1, 16, "batch", "silu", dtype=bf16),
+        conv((1, 64, 64, 32), 1, 1, 0, 32, "batch", "silu", dtype=bf16),
+        conv((1, 32, 32, 64), 1, 1, 0, 2, "none", "none", bias=True, dtype=bf16),
+        conv((2, 32, 32, 64), 3, 1, 1, 64, "batch", "silu", dtype=bf16),
+        deconv((1, 1, 1, 512), 512, "batch", "relu", dtype=bf16),
+        deconv((1, 64, 64, 256), 64, "batch", "relu", dtype=bf16),
+        deconv((1, 128, 128, 128), 3, "none", "tanh", bias=True, dtype=bf16),
+        deconv((1, 32, 32, 64), 4, "batch", "relu", dtype=bf16),
     ]
 
 
@@ -813,15 +837,18 @@ def flash_tc_report(log, smem_bytes):
 
 
 def phase_report(log, smem_bytes):
-    """The phase GEMM and narrow instantiations of ``phase_gemm.cuh`` in a
-    build log: ptxas' registers and spills, and the dynamic shared memory a
-    launch asks for (``smem_bytes(esize, narrow, tile_rows)``; the narrow
-    kernel's at its largest tile, 8 input rows)."""
+    """The phase GEMM, conv GEMM and narrow instantiations of
+    ``phase_gemm.cuh`` and ``fused_blocks.cu`` in a build log: ptxas'
+    registers and spills, and the dynamic shared memory a launch asks for
+    (``smem_bytes(esize, narrow, tile_rows)``: the conv GEMM's tiles are the
+    phase GEMM's; the narrow kernel's at its largest tile, 8 input rows). A
+    bf16 GEMM that writes fp32 (for a norm) is marked ``f32 out``."""
     rows = {}
     for fn, r in ptxas_report(log).items():
-        if m := re.search(r"phase_gemm_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E", fn):
-            f32, bm = m.group(1) == "f", int(m.group(2))
-            key = f"phase_gemm<{'f32' if f32 else 'bf16'},{bm},{'vec' if m.group(3) == '1' else 'scalar'}>"
+        if m := re.search(r"(phase|conv)_gemm_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E(f?)", fn):
+            f32, bm = m.group(2) == "f", int(m.group(3))
+            out = ",f32 out" if not f32 and m.group(5) == "f" else ""
+            key = f"{m.group(1)}_gemm<{'f32' if f32 else 'bf16'},{bm},{'vec' if m.group(4) == '1' else 'scalar'}{out}>"
             rows[key] = {**r, "dynamic_smem": smem_bytes(4 if f32 else 2, 0, bm)}
         elif m := re.search(r"narrow_kernelI(f|13__nv_bfloat16)Li(\d)E", fn):
             key = f"narrow<{'f32' if m.group(1) == 'f' else 'bf16'},{m.group(2)}>"
@@ -829,13 +856,32 @@ def phase_report(log, smem_bytes):
     return dict(sorted(rows.items()))
 
 
-# kernel name fragment -> the deconv_block pass it belongs to
-BLOCK_PASSES = (("phase_gemm_kernel", "gemm"), ("narrow_kernel", "narrow"), ("splitk_reduce", "split-K sum"),
-                ("stats_", "statistics"), ("norm_act", "normalise"))
+def ssd_report(log, smem_bytes):
+    """The SSD passes' instantiations (``ssd_{cb,state,scan}_kernel<X, N>``,
+    ``ssd_pass_kernel``) in a build log: ptxas' registers and spills, and
+    the dynamic shared memory a launch asks for (``smem_bytes(esize, n,
+    pass)``, pass 0 cb, 1 state, 2 scan; the passing kernel has none)."""
+    rows = {}
+    for fn, r in ptxas_report(log).items():
+        if m := re.search(r"ssd_(cb|state|pass|scan)_kernel(?:I(f|13__nv_bfloat16)Li(\d+)E)?", fn):
+            which, t, n = m.group(1), m.group(2), m.group(3)
+            key = f"ssd_{which}" + (f"<{'f32' if t == 'f' else 'bf16'},{n}>" if t else "")
+            pas = {"cb": 0, "state": 1, "scan": 2}.get(which)
+            dyn = smem_bytes(4 if t == "f" else 2, int(n), pas) if t and pas is not None else 0
+            rows[key] = {**r, "dynamic_smem": dyn}
+    return dict(sorted(rows.items()))
 
 
-def device_split(torch, fn, reps=5):
-    """Device ms per call of ``fn``, by pass (``BLOCK_PASSES``), under
+# kernel name fragment -> the conv_block / deconv_block pass it belongs to
+BLOCK_PASSES = (("conv_gemm_kernel", "gemm"), ("phase_gemm_kernel", "gemm"), ("narrow_kernel", "narrow"),
+                ("splitk_reduce", "split-K sum"), ("stats_", "statistics"), ("norm_act", "normalise"))
+# the SSD scan's four passes (csrc/ssd.cu)
+SSD_PASSES = (("ssd_cb_kernel", "C.B^T"), ("ssd_state_kernel", "chunk states"), ("ssd_pass_kernel", "state passing"),
+              ("ssd_scan_kernel", "chunk scan"))
+
+
+def device_split(torch, fn, reps=5, passes=BLOCK_PASSES):
+    """Device ms per call of ``fn``, by pass (``passes``), under
     ``torch.profiler``; empty when the profiler recorded no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -850,7 +896,7 @@ def device_split(torch, fn, reps=5):
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        kind = next((k for frag, k in BLOCK_PASSES if frag in e.key), "other")
+        kind = next((k for frag, k in passes if frag in e.key), "other")
         out[kind] = out.get(kind, 0.0) + e.self_device_time_total / 1e3 / reps
     return out
 
@@ -951,7 +997,7 @@ def prefill_time_split(torch, prefill, params, tokens):
         low, ms = e.key.lower(), e.self_device_time_total / 1e3
         if "flash_kernel" in low:
             kind = "flash_attention"
-        elif "ssd_kernel" in low:
+        elif "ssd_" in low:  # the four passes of csrc/ssd.cu: ssd_{cb,state,pass,scan}_kernel
             kind = "ssd"
         elif any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
             kind = "matmul"
@@ -972,6 +1018,7 @@ def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, 
     the kernels' calls of one bf16 prefill grouped by shape, and rows."""
     import numpy as np
 
+    from repro_torch import kernels
     from repro_torch.configs import build_model, get_arch
     from repro_torch.nn.module import param_count
     from repro_torch.train import make_lm_prefill
@@ -1013,6 +1060,7 @@ def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, 
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         attn_ops.reset_launches()
         ssd_ops.reset_launches()
+        kernels.grad_routes.clear()
         t0 = time.perf_counter()
         start.record()
         kern = prefill(params, tokens)
@@ -1020,8 +1068,9 @@ def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, 
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
         launches = {**attn_ops.launches, **ssd_ops.launches}
-        if launches != {"flash_attention": cfg.n_layers, "ssd": cfg.n_layers}:
-            raise AssertionError(f"{key} prefill launched {launches}, want {cfg.n_layers} of each")
+        if launches != {"flash_attention": cfg.n_layers, "ssd": cfg.n_layers} or kernels.grad_routes:
+            raise AssertionError(f"{key} prefill launched {launches}, want {cfg.n_layers} of each; plain routes "
+                                 f"taken for autograd {dict(kernels.grad_routes)}, want none")
         ms, peak = start.elapsed_time(end), torch.cuda.max_memory_allocated()
         if dtype == torch.bfloat16:
             split = prefill_time_split(torch, prefill, params, tokens)
@@ -1119,18 +1168,47 @@ def hymba_decode_phase(torch, smi, dev, cfg, params):
     return row
 
 
-def capture_main_path_calls(torch, ops, build_server, dev):
-    """Every kernel call of one Pix2Pix and one YOLOv8 frame on the
-    pallas_fused path: the model ops bind ``ops``' functions when the
-    models are built (Pix2Pix) or called (YOLO), so a recorder patched in
-    around both sees exactly the calls the served path makes."""
-    calls = {"pix": [], "yolo": []}
+def distinct_calls(bench, cs, names=REPLACES):
+    """The distinct calls among ``cs`` (``(name, args, kw)`` of the kernels
+    ``names``): ``{(name, desc, groups): [full kwargs, bias passed, count]}``."""
+    out = {}
+    for name, a_, kw in cs:
+        if name in names:
+            a, bias = bench.args(name, *a_, **kw)
+            out.setdefault((name, describe(name, a, bias), a.get("groups")), [a, bias, 0])[2] += 1
+    return out
+
+
+def block_split(torch, ops, bench, calls, frames):
+    """conv_block's and deconv_block's device time by pass (``device_split``)
+    for each distinct call of one Pix2Pix + YOLOv8 frame pair
+    (``capture_main_path_calls``), and summed over the served run (each
+    call's count times ``frames`` of its model). Returns ``(rows, totals)``:
+    rows ``[(name, desc, count, split)]``, totals ``{name: {pass: ms}}``."""
+    rows, totals = [], {"conv_block": {}, "deconv_block": {}}
+    for key, cs in calls.items():
+        for (name, desc, _), (a, _, count) in distinct_calls(bench, cs, totals).items():
+            op = getattr(ops, name)
+            sp = device_split(torch, lambda: op(**a), reps=3)
+            rows.append((name, desc, count, sp))
+            for k, v in sp.items():
+                totals[name][k] = totals[name].get(k, 0.0) + v * count * frames[key]
+    return rows, totals
+
+
+@contextlib.contextmanager
+def recording(ops):
+    """Within the block ``ops``' kernel functions are recorders: each call
+    is appended, as ``(name, args, kw)``, to the list in ``sink[0]`` (the
+    block's value), then made. The model ops bind ``ops``' functions when
+    the models are built (Pix2Pix) or called (YOLO), so models built and
+    run inside the block show exactly the calls their path makes."""
+    sink = [[]]
     real = {n: getattr(ops, n) for n in REPLACES}
-    current = []
 
     def recorder(name):
         def f(*args, **kw):
-            current[0].append((name, args, kw))
+            sink[0].append((name, args, kw))
             return real[name](*args, **kw)
 
         return f
@@ -1138,17 +1216,76 @@ def capture_main_path_calls(torch, ops, build_server, dev):
     for n in REPLACES:
         setattr(ops, n, recorder(n))
     try:
-        bundle = build_server(img=IMG, base=BASE, n_pix=1, n_yolo=1, impl="pallas", device=dev)
-        for key, model in zip(("pix", "yolo"), bundle.models):
-            current[:] = [calls[key]]
-            x = bundle.frame_for(bundle.streams[0 if key == "pix" else 1].name, 0)
-            fused = model.segment_fn(0, model.n_layers, impl="pallas_fused")
-            model.finalize(fused(model.params, model.init_state(x)))
+        yield sink
     finally:
         for n, fn in real.items():
             setattr(ops, n, fn)
+
+
+def capture_main_path_calls(torch, ops, build_server, dev):
+    """Every kernel call of one Pix2Pix and one YOLOv8 frame on the
+    pallas_fused path of the server's models."""
+    calls = {"pix": [], "yolo": []}
+    with recording(ops) as sink:
+        bundle = build_server(img=IMG, base=BASE, n_pix=1, n_yolo=1, impl="pallas", device=dev)
+        for key, model in zip(("pix", "yolo"), bundle.models):
+            sink[0] = calls[key]
+            x = bundle.frame_for(bundle.streams[0 if key == "pix" else 1].name, 0)
+            fused = model.segment_fn(0, model.n_layers, impl="pallas_fused")
+            model.finalize(fused(model.params, model.init_state(x)))
     torch.cuda.synchronize()
     return calls
+
+
+# The bf16 forward through the fused kernels against the plain-ops route,
+# fixed before its first run by the bf16-prefill rule: each output's
+# relative Frobenius distance from the same bf16 forward on the plain ops
+# must stay within twice that plain bf16 route's own distance from the f32
+# plain-ops forward, plus 1e-3. (The kernels keep the pre-norm values and
+# the accumulators in fp32 where the plain bf16 route rounds them.)
+def bf16_forward_phase(torch, ops, dev, img=IMG, base=BASE):
+    """One frame each through full-width Pix2Pix (cropping, batch norm) and
+    YOLOv8n with ``act_dtype=bfloat16`` on the ``pallas_fused`` path (the
+    served segments' ops), with the launch counters set to 0 just before
+    each; the same models' ``run_all`` on the plain ops in bf16 and in f32.
+    Returns the kernels' launches per model, the checks per output and
+    every kernel call per model (``recording``)."""
+    from repro_torch.core.pipeline import pix2pix_staged, yolo_staged
+    from repro_torch.models import Pix2PixConfig, Pix2PixGenerator, YOLOv8, YOLOv8Config
+
+    pcfg = Pix2PixConfig(img_size=img, base=base, deconv_mode="cropping")
+    ycfg = YOLOv8Config(img_size=img)
+    models = (
+        ("pix", pix2pix_staged, pcfg, {"generator": Pix2PixGenerator(pcfg).init(torch.Generator(dev).manual_seed(0))}),
+        ("yolo", yolo_staged, ycfg, YOLOv8(ycfg).init(torch.Generator(dev).manual_seed(1))),
+    )
+    frame = torch.randn((1, img, img, 3), generator=torch.Generator(dev).manual_seed(5), device=dev)
+    launches, checks, calls = {}, {}, {}
+    for key, staged, cfg, params in models:
+        with recording(ops) as sink, torch.no_grad():
+            calls[key] = sink[0]
+            m16 = staged(dataclasses.replace(cfg, act_dtype=torch.bfloat16), params)
+            fused = m16.segment_fn(0, m16.n_layers, impl="pallas_fused")
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ops.reset_launches()
+            got = m16.finalize(fused(m16.params, m16.init_state(frame)))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches[key] = dict(ops.launches)
+        with torch.no_grad():
+            plain16 = m16.run_all(frame)
+            plain32 = staged(cfg, params).run_all(frame)
+        outs = [(key, got, plain16, plain32)] if key == "pix" else [
+            (f"{key}.{k}", got[k], plain16[k], plain32[k]) for k in ("p3", "p4", "p5")]
+        for name, g, w16, w32 in outs:
+            if g.dtype != torch.bfloat16 or g.shape != w16.shape or not bool(torch.isfinite(g.float()).all()):
+                raise AssertionError(f"bf16 forward {name}: {g.dtype} {tuple(g.shape)} or non-finite values")
+            e_plain = _rel_norm(w16, w32)
+            d = _rel_norm(g, w16)
+            checks[name] = {"rel": d, "tol": 2 * e_plain + 1e-3, "plain_bf16_vs_f32": e_plain,
+                            "kernel_vs_f32": _rel_norm(g, w32)}
+    return launches, checks, calls
 
 
 def main() -> int:
@@ -1218,6 +1355,13 @@ def main() -> int:
         for inst, r in phase_tc[lib_name].items():
             print(f"{lib_name} {inst}: {r['registers']} registers, spill stores {r['spill_stores']} B, "
                   f"spill loads {r['spill_loads']} B, shared memory {r['dynamic_smem']} B dynamic")
+    ssd_tc = ssd_report(builds[kernel_mods.index(ssd_kernel)]["log"], ssd_kernel.library().ssd_smem_bytes)
+    if not ssd_tc:
+        print("ssd.cu: no ptxas report (the library was built before this run)")
+    for inst, r in ssd_tc.items():
+        print(f"ssd.cu {inst}: {r['registers']} registers, spill stores {r['spill_stores']} B, "
+              f"spill loads {r['spill_loads']} B, shared memory {r['dynamic_smem']} B dynamic + "
+              f"{r['static_smem']} B static")
 
     bench = Bench(ops, ref, deconv_ops, deconv_ref)
     rows = []
@@ -1227,7 +1371,7 @@ def main() -> int:
         r = bench.run(name, a, bias)
         rows.append({"phase": "classes", "kernel": name, "shape": describe(name, a, bias), **r})
         print(
-            f"{name:13s} {describe(name, a, bias):45s} max_err={r['max_abs_err']:.2e} kernel_ms={r['ms']:.4f} "
+            f"{name:13s} {describe(name, a, bias):50s} max_err={r['max_abs_err']:.2e} kernel_ms={r['ms']:.4f} "
             f"(host {r['host_ms']:.4f}) plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.5f} "
             f"({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'})"
@@ -1251,19 +1395,13 @@ def main() -> int:
     fields = ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")
     totals = {n: dict.fromkeys(fields + ("max_abs_err",), 0.0) for n in REPLACES}
     pair = {n: dict.fromkeys(fields, 0.0) for n in REPLACES}
-    block_calls = []
     for key, cs in calls.items():
-        groups = {}
-        for name, a_, kw in cs:
-            a, bias = bench.args(name, *a_, **kw)
-            sig = (name, describe(name, a, bias), a.get("groups"))
-            groups.setdefault(sig, [a, bias, 0])[2] += 1
+        groups = distinct_calls(bench, cs)
         for (name, desc, _), (a, bias, count) in groups.items():
             r = bench.run(name, a, bias)
             rows.append({"phase": key, "kernel": name, "shape": desc, "count": count, **r})
-            if name == "deconv_block":
-                block_calls.append((desc, a, count))
-                print(f"deconv_block  {desc:45s} x{count}: kernel {r['ms']:.4f} ms ({achieved(r)}), library "
+            if name != "sppf_pyramid":
+                print(f"{name:13s} {desc:45s} x{count}: kernel {r['ms']:.4f} ms ({achieved(r)}), library "
                       f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f}, max_err {r['max_abs_err']:.2e}")
             for f in fields:
                 totals[name][f] += r[f] * count * frames[key]
@@ -1276,10 +1414,10 @@ def main() -> int:
             f"{pair[n]['host_ms']:.4f}), plain {pair[n]['plain_ms']:.4f}, library "
             f"{pair[n]['library_ms']:.4f}, bound {pair[n]['bound_ms']:.5f}"
         )
-    blk = pair["deconv_block"]
-    print(f"{'':13s} deconv_block: {blk['ops_ms'] * FP32_ACCURATE_FLOPS / blk['ms'] / 1e12:.2f} TFLOP/s, "
-          f"{100 * blk['bound_ms'] / blk['ms']:.2f}% of the bound | {smi}")
-    del calls
+    for n in ("conv_block", "deconv_block"):
+        blk = pair[n]
+        print(f"{'':13s} {n}: {blk['ops_ms'] * FP32_ACCURATE_FLOPS / blk['ms'] / 1e12:.2f} TFLOP/s, "
+              f"{100 * blk['bound_ms'] / blk['ms']:.2f}% of the bound | {smi}")
 
     print(f"-- main path: build_server(img={IMG}, base={BASE}, n_pix=2, n_yolo=1, impl='pallas')")
     bundle = build_server(img=IMG, base=BASE, n_pix=2, n_yolo=1, impl="pallas", device=dev)
@@ -1337,12 +1475,38 @@ def main() -> int:
           f"max |served - xla run_all| = {worst:.2e} (atol 5e-3, rtol 1e-2); warm-up completions {warm_counts}")
 
     # after the served run: the profiler's tracing must not tax its launches
-    block_split = {}
-    for desc, a, count in block_calls:
-        sp = device_split(torch, lambda: ops.deconv_block(**a))
-        block_split[desc] = sp
-        print(f"deconv_block  {desc:45s} device ms by pass (torch.profiler): "
+    split_rows, split_totals = block_split(torch, ops, bench, calls, frames)
+    for name, desc, count, sp in split_rows:
+        print(f"{name:13s} {desc:45s} x{count} device ms by pass (torch.profiler): "
               + (", ".join(f"{k} {v:.4f}" for k, v in sp.items()) or "not measured (no kernel recorded)"))
+    for name, tot in split_totals.items():
+        print(f"{name:13s} over the served run, device ms by pass: "
+              + (", ".join(f"{k} {v:.3f}" for k, v in tot.items()) or "not measured") + f" | {smi}")
+    del calls
+
+    print(f"-- main path in bf16: one frame each through Pix2Pix and YOLOv8n (img {IMG}, base {BASE}, "
+          "act_dtype bfloat16) on the fused kernels, against the plain ops")
+    bf16_launches, bf16_checks, bf16_calls = bf16_forward_phase(torch, ops, dev)
+    want16 = {"pix": {"conv_block": depth, "deconv_block": depth, "sppf_pyramid": 0},
+              "yolo": {"conv_block": 63, "deconv_block": 0, "sppf_pyramid": 1}}
+    print("launches:", json.dumps(bf16_launches))
+    if bf16_launches != want16:
+        raise AssertionError(f"bf16 forward launched {bf16_launches}, want {want16}")
+    for name, c in bf16_checks.items():
+        print(f"  {name:8s} bf16 kernels vs bf16 plain ops {c['rel']:.3e} (<= {c['tol']:.3e}); vs the f32 plain "
+              f"ops: bf16 plain {c['plain_bf16_vs_f32']:.3e}, bf16 kernels {c['kernel_vs_f32']:.3e}")
+        if not c["rel"] <= c["tol"]:
+            raise AssertionError(f"bf16 forward {name}: kernels vs plain ops beyond tolerance {c}")
+    # each distinct call of that forward on its own, at the bf16 pin (Bench.run)
+    for key, cs in bf16_calls.items():
+        groups = distinct_calls(bench, cs)
+        for (name, desc, _), (a, bias, count) in groups.items():
+            r = bench.run(name, a, bias)
+            rows.append({"phase": f"{key} bf16", "kernel": name, "shape": desc, "count": count, **r})
+            print(f"{name:13s} {desc:50s} x{count}: max_err {r['max_abs_err']:.2e} (<= 5e-2), kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}")
+        print(f"{key} bf16: {len(cs)} calls in {len(groups)} distinct shapes, all within 5e-2")
+    del bf16_calls
 
     print("-- deconv2d vs its plain version, shape classes (ms on the card, CUDA events)")
     class_err = {}
@@ -1387,6 +1551,14 @@ def main() -> int:
 
     print("-- LM kernels vs plain versions, shape classes (ms on the card, CUDA events)")
     lm_bench = LMBench(attn_ops, attn_ref, ssd_ops, ssd_ref)
+    ssd_split = {}
+
+    def split_ssd(a, what, count=1):
+        sp = device_split(torch, lambda: ssd_ops.ssd(**a), reps=3, passes=SSD_PASSES)
+        ssd_split[what] = {k: v * count for k, v in sp.items()}
+        print(f"{'':15s} ssd device ms by pass{f' x{count}' if count > 1 else ''} (torch.profiler): "
+              + (", ".join(f"{k} {v * count:.4f}" for k, v in sp.items()) or "not measured (no kernel recorded)"))
+
     for name, a_, kw in lm_classes(torch, dev):
         a = lm_bench.args(name, *a_, **kw)
         r = lm_bench.run(name, a)
@@ -1399,6 +1571,8 @@ def main() -> int:
         )
         if name == "flash_attention":
             print(f"{'':15s} {achieved(r)}")
+        else:
+            split_ssd(a, f"class {describe_lm(name, a)}")
         if "bf16_plain_vs_f32" in r:
             print(f"{'':15s} bf16 vs f32 plain on the same inputs: kernel {r['max_abs_err']:.3e}, plain bf16 "
                   f"(control) {r['bf16_plain_vs_f32']:.3e}; kernel vs plain bf16 {r['err_vs_same_dtype_ref']:.3e}; "
@@ -1422,6 +1596,8 @@ def main() -> int:
         rate = f" ({achieved(r)})" if name == "flash_attention" else ""
         print(f"{name:15s} {describe_lm(name, a):52s} x{count}: kernel {r['ms']:.4f} ms{rate}, plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.5f}, max_err vs f32 {r['max_abs_err']:.2e}{ctl}")
+        if name == "ssd":
+            split_ssd(a, "prefill bf16", count)
     del lm_calls
     for n, tot in lm_tot.items():
         lib = "none" if n in lm_lib_none else f"{tot['library_ms']:.4f}"
@@ -1465,7 +1641,9 @@ def main() -> int:
         Path(args.json).write_text(json.dumps(
             {"card": smi, "rows": rows, "kernels": kernels, "report": rep, "per_frame_pair": pair,
              "train": train_rows, "eval": eval_metrics, "deconv2d_per_forward": deconv_tot,
-             "deconv2d_class_max_abs_err": class_err, "deconv_block_split": block_split, "phase_ptxas": phase_tc,
+             "deconv2d_class_max_abs_err": class_err, "block_split": {"rows": split_rows, "totals": split_totals},
+             "phase_ptxas": phase_tc, "ssd_ptxas": ssd_tc, "ssd_split": ssd_split,
+             "bf16_forward": {"launches": bf16_launches, "checks": bf16_checks},
              "hymba_prefill": prefill_rows, "lm_per_prefill": lm_tot, "hymba_decode": decode_row,
              "flash_tc_ptxas": flash_tc,
              "seconds": time.perf_counter() - t_start}, indent=1, default=str))

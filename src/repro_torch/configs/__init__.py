@@ -44,9 +44,9 @@ FAMILIES = {
 PORTED = ("hymba", "pix2pix", "yolo")
 # where each family not ported yet is queued
 _QUEUED = {
-    "lm": "ROADMAP module queue item 1 (TransformerLM: dense, then MoE, MLA, M-RoPE)",
-    "mamba2": "ROADMAP module queue item 1 (Mamba2LM)",
-    "whisper": "ROADMAP module queue item 1 (WhisperModel)",
+    "lm": "ROADMAP module queue item 3 (TransformerLM: dense, then MoE, MLA, M-RoPE)",
+    "mamba2": "ROADMAP module queue item 3 (Mamba2LM)",
+    "whisper": "ROADMAP module queue item 3 (WhisperModel)",
 }
 
 # assignment shape set (LM transformers): seq_len x global_batch

@@ -2,13 +2,39 @@
 # JAX package's three-file layout: kernel.py (the kernel's build, binding and
 # launch), ops.py (CPU tensors -> the plain version, CUDA tensors -> the
 # kernel), ref.py (the plain PyTorch version).
+import collections
+
 import torch
 
 
 _TRAIN_HINT = 'train with impl="xla" / deconv_backend="xla" (as the reference does)'
-# the LM kernels (flash attention, the SSD scan) have no plain route on the
-# card yet: LM training, with the plain ops, is a later slice
-LM_HINT = "LM training is not ported yet (it will run the plain ops)"
+# the LM modules (nn.Attention, nn.Mamba2Block) route themselves: they call
+# the LM kernels only where autograd needs no gradient, and the plain ops
+# (_sdpa, ssd_chunked) otherwise, on both devices
+LM_HINT = "differentiate through nn.Attention / nn.Mamba2Block, which take the plain ops then"
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would need a gradient through a call on ``tensors``:
+    grad mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+# LM module calls on CUDA tensors that took the plain ops because autograd
+# needed a gradient, by kernel ("flash_attention", "ssd"): a serving caller
+# that forgot torch.no_grad() shows here
+grad_routes = collections.Counter()
+
+
+def grad_route(name: str, *tensors) -> bool:
+    """Whether an LM module takes the plain ops in place of kernel ``name``
+    (autograd needs a gradient through ``tensors``), counted in
+    ``grad_routes`` when the call is on the card."""
+    if not needs_grad(*tensors):
+        return False
+    if tensors[0].device.type == "cuda":
+        grad_routes[name] += 1
+    return True
 
 
 def refuse_grad(name: str, *tensors, hint: str = _TRAIN_HINT) -> None:
@@ -18,7 +44,5 @@ def refuse_grad(name: str, *tensors, hint: str = _TRAIN_HINT) -> None:
     ``custom_vjp``: on the card their outputs would carry no ``grad_fn``
     and cut the gradient silently. So both devices refuse, and training
     runs the plain ops, as the JAX package does."""
-    if torch.is_grad_enabled() and any(
-        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
-    ):
+    if needs_grad(*tensors):
         raise RuntimeError(f"{name} has no backward: {hint}, or call it under torch.no_grad()")

@@ -99,3 +99,9 @@ def require(t: torch.Tensor, name: str, dtype, shape=None):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy of it when its data does not start on a
+    16-byte boundary (the kernels' 16-byte loads and cp.async chunks)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

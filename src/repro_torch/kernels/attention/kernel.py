@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 from .. import _build
-from .._build import require
+from .._build import aligned16, require
 
 _SRC = Path(__file__).parent / "csrc" / "flash_attention.cu"
 _BUILD_DIR = Path(__file__).parent / "build"
@@ -50,12 +50,6 @@ def library() -> ctypes.CDLL:
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a fresh copy of it when its data does not start on a
-    16-byte boundary (the bf16 kernel's cp.async chunks)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_shapes(q, k, v, causal: bool, window: int):

@@ -2,6 +2,8 @@
 // for Hopper (sm_90a): the phase GEMM that deconv2d.cu and
 // ../../fused/csrc/fused_blocks.cu (deconv_block) both launch, as the JAX
 // package's deconv_block_pallas reuses deconv/kernel.py's _phase_matmuls.
+// fused_blocks.cu's conv GEMM runs the same K loop (gemm_k_loop) over a
+// conv's taps.
 //
 // Layouts are the JAX package's: x (B, H, W, Cin) NHWC, w (4, 4, Cin, Cout)
 // as lax.conv_transpose applies it, y (B, 2H, 2W, Cout); x, w and y float32
@@ -216,138 +218,23 @@ __host__ __device__ constexpr int gemm_threads() {
   return 64 * BM / warp_rows<T, BM>();
 }
 
-// One BM x 64 output tile of one phase and one split of its live K tiles.
-template <typename T, int BM, bool VEC>
-__global__ void __launch_bounds__(gemm_threads<T, BM>())
-phase_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
-                  T* __restrict__ y, float* __restrict__ part, PhaseGeom g) {
+// The K loop of both tensor-core implicit GEMMs, phase_gemm_kernel below and
+// fused_blocks.cu's conv_gemm_kernel: from K tile kt, up to todo live tiles
+// (tile_live(kt): the tile holds a tap the block voted live) through a
+// STAGES-deep cp.async ring (load_tile(k_tile, stage) issues one tile's
+// copies into stage), their MMAs summed into acc, the warp's WR x 32 tile of
+// the block's BM x 64 output (fragment layout above).
+template <typename T, int BM, typename Live, typename Load>
+__device__ __forceinline__ void gemm_k_loop(const T* As, int kt, int todo, int nkt, Live tile_live, Load load_tile,
+                                           float (&acc)[warp_rows<T, BM>() / 16][4][4]) {
   constexpr bool F32 = sizeof(T) == 4;
-  constexpr int WR = warp_rows<T, BM>(), MI = WR / 16;  // MI m16 fragments down a warp's tile
-  constexpr int THREADS = gemm_threads<T, BM>();
-  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
+  constexpr int WR = warp_rows<T, BM>(), MI = WR / 16;
   constexpr int BK = Tile<T>::K, AP = Tile<T>::A, BP = Tile<T>::B;
   constexpr int A_STAGE = BM * AP, B_STAGE = BK * BP;
-  static_assert((BM == 64 || BM == 128) && THREADS >= BM, "2 warps across N; a thread per row for the tap vote");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* As = reinterpret_cast<T*>(smem_raw);
-  T* Bs = As + STAGES * A_STAGE;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* Bs = As + STAGES * A_STAGE;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gq = lane >> 2, tq = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;  // the warp's WR x 32 tile: rows WR wm, columns 32 wn
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int phase = (int)blockIdx.z / g.splitk;
-  const int split = (int)blockIdx.z - phase * g.splitk;
-  const int pa = phase >> 1, pb = phase & 1;
-  const int HW = g.H * g.W;
-
-  // Which of the phase's 4 taps reach a real input for some row of this tile.
-  int live = 0;
-  {
-    int u = -4, v = -4;  // rows past the tile or the tensor reach nothing
-    if (tid < BM && m0 + tid < g.M) {
-      const int r = (m0 + tid) % HW;
-      u = r / g.W;
-      v = r - u * g.W;
-    }
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int ih = u + pa - 1 + (t >> 1), iw = v + pb - 1 + (t & 1);
-      live |= (__syncthreads_or(ih >= 0 && ih < g.H && iw >= 0 && iw < g.W) != 0) << t;
-    }
-  }
-  const int nkt = (g.K + BK - 1) / BK;
-  auto tile_live = [&](int kt) {
-    const int k0 = kt * BK;
-    const int t_lo = k0 / g.Cin, t_hi = (min(k0 + BK, g.K) - 1) / g.Cin;
-    return ((live >> t_lo) & ((2 << (t_hi - t_lo)) - 1)) != 0;
-  };
-  // this split's share of the block's live K tiles: [split * per, split * per + per)
-  int kt = 0;
-  while (kt < nkt && !tile_live(kt)) ++kt;
-  for (int i = split * g.per; i > 0 && kt < nkt; --i) {
-    ++kt;
-    while (kt < nkt && !tile_live(kt)) ++kt;
-  }
-  int todo = g.per;
-
-  // VEC staging: thread -> (rows tid / CPR + i * A_ROWS, chunk tid % CPR) of A
-  constexpr int CPR = BK / EPC;
-  constexpr int A_IT = BM * CPR / THREADS;
-  constexpr int A_ROWS = THREADS / CPR;
-  constexpr int CPB = BN / EPC;
-  const int a_ch = tid % CPR;
-  int a_off[VEC ? A_IT : 1], a_ih[VEC ? A_IT : 1], a_iw[VEC ? A_IT : 1];
-  if constexpr (VEC) {
-#pragma unroll
-    for (int i = 0; i < A_IT; ++i) {
-      const int m = m0 + tid / CPR + i * A_ROWS;
-      a_off[i] = 0;
-      a_ih[i] = a_iw[i] = -4;  // never in range: the row loads zeros
-      if (m < g.M) {
-        const int b = m / HW;
-        const int r = m - b * HW;
-        const int u = r / g.W;
-        a_off[i] = b * HW * g.Cin + a_ch * EPC;
-        a_ih[i] = u + pa - 1;
-        a_iw[i] = r - u * g.W + pb - 1;
-      }
-    }
-  }
-
-  auto load_tile = [&](int k_tile, int stage) {
-    T* as = As + stage * A_STAGE;
-    T* bs = Bs + stage * B_STAGE;
-    const int k0 = k_tile * BK;
-    if constexpr (VEC) {
-      const int tap = k0 / g.Cin, c0 = k0 - tap * g.Cin;
-      const int di = tap >> 1, dj = tap & 1;
-#pragma unroll
-      for (int i = 0; i < A_IT; ++i) {
-        const int ih = a_ih[i] + di, iw = a_iw[i] + dj;
-        const bool ok = ih >= 0 && ih < g.H && iw >= 0 && iw < g.W;
-        const T* src = ok ? x + a_off[i] + (ih * g.W + iw) * g.Cin + c0 : x;
-        cp_async16(smem_u32(as + (tid / CPR + i * A_ROWS) * AP + a_ch * EPC), src, ok);
-      }
-      const int th = pa + 2 * di, tw = pb + 2 * dj;
-      const T* wrow = w + ((size_t)(th * 4 + tw) * g.Cin + c0) * g.Cout;
-#pragma unroll
-      for (int c = tid; c < BK * CPB; c += THREADS) {
-        const int kr = c / CPB, ch = c - kr * CPB;
-        const int n = n0 + ch * EPC;
-        const bool ok = n < g.Cout;
-        cp_async16(smem_u32(bs + kr * BP + ch * EPC), ok ? wrow + (size_t)kr * g.Cout + n : w, ok);
-      }
-    } else {
-      for (int e = tid; e < BM * BK; e += THREADS) {
-        const int r = e / BK, kc = e - r * BK;
-        const int kk = k0 + kc, m = m0 + r;
-        float v = 0.f;
-        if (kk < g.K && m < g.M) {
-          const int tap = kk / g.Cin, ci = kk - tap * g.Cin;
-          const int b = m / HW;
-          const int rr = m - b * HW;
-          const int u = rr / g.W;
-          const int ih = u + pa - 1 + (tap >> 1), iw = rr - u * g.W + pb - 1 + (tap & 1);
-          if (ih >= 0 && ih < g.H && iw >= 0 && iw < g.W) v = to_f(x[(b * HW + ih * g.W + iw) * g.Cin + ci]);
-        }
-        as[r * AP + kc] = from_f<T>(v);
-      }
-      for (int e = tid; e < BK * BN; e += THREADS) {
-        const int kr = e / BN, nn = e - kr * BN;
-        const int kk = k0 + kr, n = n0 + nn;
-        float v = 0.f;
-        if (kk < g.K && n < g.Cout) {
-          const int tap = kk / g.Cin, ci = kk - tap * g.Cin;
-          const int th = pa + 2 * (tap >> 1), tw = pb + 2 * (tap & 1);
-          v = to_f(w[((size_t)(th * 4 + tw) * g.Cin + ci) * g.Cout + n]);
-        }
-        bs[kr * BP + nn] = from_f<T>(v);
-      }
-    }
-  };
-
-  float acc[MI][4][4];
+  const int wm = warp >> 1, wn = warp & 1;
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -446,6 +333,141 @@ phase_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float*
     }
   }
   cp_async_wait<0>();
+}
+
+// One BM x 64 output tile of one phase and one split of its live K tiles.
+// O: the output type, T's own or (fused_blocks.cu, when a norm follows a
+// bf16 GEMM) float.
+template <typename T, int BM, bool VEC, typename O = T>
+__global__ void __launch_bounds__(gemm_threads<T, BM>())
+phase_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
+                  O* __restrict__ y, float* __restrict__ part, PhaseGeom g) {
+  constexpr int WR = warp_rows<T, BM>(), MI = WR / 16;  // MI m16 fragments down a warp's tile
+  constexpr int THREADS = gemm_threads<T, BM>();
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
+  constexpr int BK = Tile<T>::K, AP = Tile<T>::A, BP = Tile<T>::B;
+  constexpr int A_STAGE = BM * AP, B_STAGE = BK * BP;
+  static_assert((BM == 64 || BM == 128) && THREADS >= BM, "2 warps across N; a thread per row for the tap vote");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* As = reinterpret_cast<T*>(smem_raw);
+  T* Bs = As + STAGES * A_STAGE;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;  // the warp's WR x 32 tile: rows WR wm, columns 32 wn
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int phase = (int)blockIdx.z / g.splitk;
+  const int split = (int)blockIdx.z - phase * g.splitk;
+  const int pa = phase >> 1, pb = phase & 1;
+  const int HW = g.H * g.W;
+
+  // Which of the phase's 4 taps reach a real input for some row of this tile.
+  int live = 0;
+  {
+    int u = -4, v = -4;  // rows past the tile or the tensor reach nothing
+    if (tid < BM && m0 + tid < g.M) {
+      const int r = (m0 + tid) % HW;
+      u = r / g.W;
+      v = r - u * g.W;
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int ih = u + pa - 1 + (t >> 1), iw = v + pb - 1 + (t & 1);
+      live |= (__syncthreads_or(ih >= 0 && ih < g.H && iw >= 0 && iw < g.W) != 0) << t;
+    }
+  }
+  const int nkt = (g.K + BK - 1) / BK;
+  auto tile_live = [&](int kt) {
+    const int k0 = kt * BK;
+    const int t_lo = k0 / g.Cin, t_hi = (min(k0 + BK, g.K) - 1) / g.Cin;
+    return ((live >> t_lo) & ((2 << (t_hi - t_lo)) - 1)) != 0;
+  };
+  // this split's share of the block's live K tiles: [split * per, split * per + per)
+  int kt = 0;
+  while (kt < nkt && !tile_live(kt)) ++kt;
+  for (int i = split * g.per; i > 0 && kt < nkt; --i) {
+    ++kt;
+    while (kt < nkt && !tile_live(kt)) ++kt;
+  }
+
+  // VEC staging: thread -> (rows tid / CPR + i * A_ROWS, chunk tid % CPR) of A
+  constexpr int CPR = BK / EPC;
+  constexpr int A_IT = BM * CPR / THREADS;
+  constexpr int A_ROWS = THREADS / CPR;
+  constexpr int CPB = BN / EPC;
+  const int a_ch = tid % CPR;
+  int a_off[VEC ? A_IT : 1], a_ih[VEC ? A_IT : 1], a_iw[VEC ? A_IT : 1];
+  if constexpr (VEC) {
+#pragma unroll
+    for (int i = 0; i < A_IT; ++i) {
+      const int m = m0 + tid / CPR + i * A_ROWS;
+      a_off[i] = 0;
+      a_ih[i] = a_iw[i] = -4;  // never in range: the row loads zeros
+      if (m < g.M) {
+        const int b = m / HW;
+        const int r = m - b * HW;
+        const int u = r / g.W;
+        a_off[i] = b * HW * g.Cin + a_ch * EPC;
+        a_ih[i] = u + pa - 1;
+        a_iw[i] = r - u * g.W + pb - 1;
+      }
+    }
+  }
+
+  auto load_tile = [&](int k_tile, int stage) {
+    T* as = As + stage * A_STAGE;
+    T* bs = Bs + stage * B_STAGE;
+    const int k0 = k_tile * BK;
+    if constexpr (VEC) {
+      const int tap = k0 / g.Cin, c0 = k0 - tap * g.Cin;
+      const int di = tap >> 1, dj = tap & 1;
+#pragma unroll
+      for (int i = 0; i < A_IT; ++i) {
+        const int ih = a_ih[i] + di, iw = a_iw[i] + dj;
+        const bool ok = ih >= 0 && ih < g.H && iw >= 0 && iw < g.W;
+        const T* src = ok ? x + a_off[i] + (ih * g.W + iw) * g.Cin + c0 : x;
+        cp_async16(smem_u32(as + (tid / CPR + i * A_ROWS) * AP + a_ch * EPC), src, ok);
+      }
+      const int th = pa + 2 * di, tw = pb + 2 * dj;
+      const T* wrow = w + ((size_t)(th * 4 + tw) * g.Cin + c0) * g.Cout;
+#pragma unroll
+      for (int c = tid; c < BK * CPB; c += THREADS) {
+        const int kr = c / CPB, ch = c - kr * CPB;
+        const int n = n0 + ch * EPC;
+        const bool ok = n < g.Cout;
+        cp_async16(smem_u32(bs + kr * BP + ch * EPC), ok ? wrow + (size_t)kr * g.Cout + n : w, ok);
+      }
+    } else {
+      for (int e = tid; e < BM * BK; e += THREADS) {
+        const int r = e / BK, kc = e - r * BK;
+        const int kk = k0 + kc, m = m0 + r;
+        float v = 0.f;
+        if (kk < g.K && m < g.M) {
+          const int tap = kk / g.Cin, ci = kk - tap * g.Cin;
+          const int b = m / HW;
+          const int rr = m - b * HW;
+          const int u = rr / g.W;
+          const int ih = u + pa - 1 + (tap >> 1), iw = rr - u * g.W + pb - 1 + (tap & 1);
+          if (ih >= 0 && ih < g.H && iw >= 0 && iw < g.W) v = to_f(x[(b * HW + ih * g.W + iw) * g.Cin + ci]);
+        }
+        as[r * AP + kc] = from_f<T>(v);
+      }
+      for (int e = tid; e < BK * BN; e += THREADS) {
+        const int kr = e / BN, nn = e - kr * BN;
+        const int kk = k0 + kr, n = n0 + nn;
+        float v = 0.f;
+        if (kk < g.K && n < g.Cout) {
+          const int tap = kk / g.Cin, ci = kk - tap * g.Cin;
+          const int th = pa + 2 * (tap >> 1), tw = pb + 2 * (tap & 1);
+          v = to_f(w[((size_t)(th * 4 + tw) * g.Cin + ci) * g.Cout + n]);
+        }
+        bs[kr * BP + nn] = from_f<T>(v);
+      }
+    }
+  };
+
+  float acc[MI][4][4];
+  gemm_k_loop<T, BM>(As, kt, g.per, nkt, tile_live, load_tile, acc);
 
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
@@ -466,7 +488,7 @@ phase_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, const float*
           if (n >= g.Cout) continue;
           const float s = acc[mi][ni][2 * h + e];
           if (g.splitk == 1)
-            y[orow * g.Cout + n] = from_f<T>(activate(s + (bias ? bias[n] : 0.f), g.act));
+            y[orow * g.Cout + n] = from_f<O>(activate(s + (bias ? bias[n] : 0.f), g.act));
           else
             part[((size_t)split * g.Mtot + orow) * g.Cout + n] = s;
         }
@@ -663,23 +685,23 @@ int allow_smem(F* kernel, size_t bytes, unsigned& done) {
   return err;
 }
 
-template <typename T, int BM, bool VEC>
-int launch_gemm_tile(const T* x, const T* w, const float* bias, T* out, float* part, const PhaseGeom& g,
+template <typename T, int BM, bool VEC, typename O>
+int launch_gemm_tile(const T* x, const T* w, const float* bias, O* out, float* part, const PhaseGeom& g,
                      cudaStream_t stream) {
   static unsigned done = 0;
   const size_t smem = gemm_smem_bytes<T>(BM);
-  int err = allow_smem(phase_gemm_kernel<T, BM, VEC>, smem, done);
+  int err = allow_smem(phase_gemm_kernel<T, BM, VEC, O>, smem, done);
   if (err) return err;
   dim3 grid((g.M + BM - 1) / BM, (g.Cout + BN - 1) / BN, 4 * g.splitk);
-  phase_gemm_kernel<T, BM, VEC><<<grid, gemm_threads<T, BM>(), smem, stream>>>(x, w, bias, out, part, g);
+  phase_gemm_kernel<T, BM, VEC, O><<<grid, gemm_threads<T, BM>(), smem, stream>>>(x, w, bias, out, part, g);
   return (int)cudaGetLastError();
 }
 
-// The phase GEMM, then (splitk > 1) the fixed-order sum of its splits.
-// bm: 64 or 128 rows per tile (128 only with vec). part: splitk * Mtot *
-// Cout floats when splitk > 1, else unused.
-template <typename T>
-int launch_phase_gemm(const T* x, const T* w, const float* bias, T* y, float* part, const PhaseGeom& g,
+// The phase GEMM, then (splitk > 1) the fixed-order sum of its splits, into
+// y of type O (T's own, or float). bm: 64 or 128 rows per tile (128 only
+// with vec). part: splitk * Mtot * Cout floats when splitk > 1, else unused.
+template <typename T, typename O = T>
+int launch_phase_gemm(const T* x, const T* w, const float* bias, O* y, float* part, const PhaseGeom& g,
                       int bm, int vec, cudaStream_t stream) {
   int err;
   if (vec && bm == 128)
@@ -690,7 +712,7 @@ int launch_phase_gemm(const T* x, const T* w, const float* bias, T* y, float* pa
     err = launch_gemm_tile<T, 64, false>(x, w, bias, y, part, g, stream);
   if (err || g.splitk == 1) return err;
   const int total = g.Mtot * g.Cout;
-  splitk_reduce_kernel<T><<<grid_for(total), 256, 0, stream>>>(part, bias, y, g.splitk, total, g.Cout, g.act);
+  splitk_reduce_kernel<O><<<grid_for(total), 256, 0, stream>>>(part, bias, y, g.splitk, total, g.Cout, g.act);
   return (int)cudaGetLastError();
 }
 

@@ -84,34 +84,22 @@ def live_k_tiles(H: int, W: int, cin: int, bk: int) -> int:
     return most
 
 
-@functools.cache
-def phase_geometry(B: int, H: int, W: int, cin: int, cout: int, esize: int = 4,
-                   aligned: bool = True) -> PhaseGeometry:
-    """The launch for a (B, H, W, cin) -> cout deconv with ``esize``-byte
-    operands. The narrow kernel takes the rows per block that still give
-    two blocks per SM. The GEMM takes 128-row tiles where they give two
-    blocks per SM, or for f32 (whose 128-row tile has 64 x 32 warp tiles:
-    more MMAs per split fragment) half a block per SM, and splits K where
-    its tiles do not fill the SMs, never beyond the blocks that shared
-    memory lets the SMs hold at once (four 64-row or two 128-row tiles
-    each: a second wave would cost a whole tile's time): layers of fewer
-    than ``_WEIGHT_BOUND_ROWS`` rows per phase (the deep layers, bound by
-    their weight bytes) up to that limit, the others until about two
-    blocks per SM; each split at least 2 live K tiles deep. ``aligned``: x
-    and w start on a 16-byte boundary (a condition of the 16-byte
-    staging)."""
-    if cout <= NARROW_COUT:
-        for rows in (8, 4):
-            if B * math.ceil(H / rows) * math.ceil(W / NARROW_COLS) >= _TARGET_BLOCKS:
-                return PhaseGeometry(True, rows)
-        return PhaseGeometry(True, 2)
-    bk = phase_bk(esize)
-    vec = aligned and cin % bk == 0 and (cout * esize) % 16 == 0
-    M, n_tiles = B * H * W, 4 * math.ceil(cout / PHASE_BN)
+def gemm_plan(M: int, n_tiles: int, nkt: int, vec: bool, esize: int) -> tuple[int, int, int]:
+    """``(tile_rows, splitk, per)`` of a tensor-core implicit GEMM (the phase
+    GEMM, and the conv GEMM of ``fused_blocks.cu``, which shares its tiles)
+    with M rows, ``n_tiles`` column tiles (and phases) and ``nkt`` live K
+    tiles: 128-row tiles where they give two blocks per SM, or for f32
+    (whose 128-row tile has 64 x 32 warp tiles: more MMAs per split
+    fragment) half a block per SM; K split where the tiles do not fill the
+    SMs, never beyond the blocks that shared memory lets the SMs hold at
+    once (four 64-row or two 128-row tiles each: a second wave would cost a
+    whole tile's time): GEMMs of fewer than ``_WEIGHT_BOUND_ROWS`` rows (the
+    deep layers, bound by their weight bytes) up to that limit, the others
+    until about two blocks per SM; each split at least 2 live K tiles
+    deep."""
     enough = _SMS // 2 if esize == 4 else _TARGET_BLOCKS
     bm = 128 if vec and math.ceil(M / 128) * n_tiles >= enough else 64
     tiles = math.ceil(M / bm) * n_tiles
-    nkt = live_k_tiles(H, W, cin, bk)
     resident = (4 if bm == 64 else 2) * _SMS
     split = 1
     if tiles < _SMS:
@@ -120,7 +108,27 @@ def phase_geometry(B: int, H: int, W: int, cin: int, cout: int, esize: int = 4,
             split = min(split, math.ceil(_TARGET_BLOCKS / tiles))
         split = max(1, min(split, nkt // 2))
     per = math.ceil(nkt / split)
-    return PhaseGeometry(False, bm, vec, math.ceil(nkt / per), per)
+    return bm, math.ceil(nkt / per), per
+
+
+@functools.cache
+def phase_geometry(B: int, H: int, W: int, cin: int, cout: int, esize: int = 4,
+                   aligned: bool = True, narrow_ok: bool = True) -> PhaseGeometry:
+    """The launch for a (B, H, W, cin) -> cout deconv with ``esize``-byte
+    operands. The narrow kernel (Cout <= ``NARROW_COUT``, when
+    ``narrow_ok``) takes the rows per block that still give two blocks per
+    SM. The GEMM's tiles and K split are ``gemm_plan``'s over the four
+    phases' rows per phase. ``aligned``: x and w start on a 16-byte
+    boundary (a condition of the 16-byte staging)."""
+    if cout <= NARROW_COUT and narrow_ok:
+        for rows in (8, 4):
+            if B * math.ceil(H / rows) * math.ceil(W / NARROW_COLS) >= _TARGET_BLOCKS:
+                return PhaseGeometry(True, rows)
+        return PhaseGeometry(True, 2)
+    bk = phase_bk(esize)
+    vec = aligned and cin % bk == 0 and (cout * esize) % 16 == 0
+    bm, splitk, per = gemm_plan(B * H * W, 4 * math.ceil(cout / PHASE_BN), live_k_tiles(H, W, cin, bk), vec, esize)
+    return PhaseGeometry(False, bm, vec, splitk, per)
 
 
 def build() -> dict:

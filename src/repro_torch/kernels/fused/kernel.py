@@ -1,6 +1,8 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/fused_blocks.cu``
 (its deconv_block launches ``deconv/csrc/phase_gemm.cuh``'s kernels, with
-the launch ``deconv.kernel.phase_geometry`` chooses).
+the launch ``deconv.kernel.phase_geometry`` chooses; its conv GEMM shares
+their K loop, ``gemm_k_loop``, and tiles, with the launch ``conv_geometry``
+chooses).
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first use (``build()``, through
@@ -15,6 +17,7 @@ kernels and their plain versions is ``ops.py``'s job.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from pathlib import Path
@@ -23,7 +26,7 @@ import torch
 
 from .. import _build
 from .._build import require
-from ..deconv.kernel import phase_geometry
+from ..deconv.kernel import PHASE_BN, gemm_plan, phase_bk, phase_geometry
 
 _SRC = Path(__file__).parent / "csrc" / "fused_blocks.cu"
 _BUILD_DIR = Path(__file__).parent / "build"
@@ -31,11 +34,12 @@ _BUILD_DIR = Path(__file__).parent / "build"
 NORMS = {"none": 0, "batch": 1, "instance": 2, "group": 3}
 ACTS = {"none": 0, "relu": 1, "lrelu": 2, "silu": 3, "tanh": 4}
 
-# GEMM tile of the conv kernel (BM x BN output tile, BK deep K tile)
-_BM, _BN, _BK = 64, 64, 16
+_ENTRY = {torch.float32: "fused_conv_block_f32", torch.bfloat16: "fused_conv_block_bf16"}
 # blocks wanted in flight: two per SM of an H100
 _TARGET_BLOCKS = 2 * 132
 _SPPF_SMEM = 48 * 1024
+# taps the conv GEMM's block vote covers (one bit each of an unsigned)
+VOTE_TAPS = 32
 
 
 def build() -> dict:
@@ -48,8 +52,9 @@ def build() -> dict:
 def library() -> ctypes.CDLL:
     lib = _build.load(_SRC, _BUILD_DIR)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_conv_block_f32.argtypes = [p] * 8 + [i] * 12 + [f] + [i] * 6 + [p]
-    lib.fused_conv_block_f32.restype = i
+    for name in _ENTRY.values():
+        getattr(lib, name).argtypes = [p] * 9 + [i] * 12 + [f] + [i] * 6 + [p]
+        getattr(lib, name).restype = i
     for name in ("sppf_pyramid_f32", "sppf_pyramid_bf16"):
         getattr(lib, name).argtypes = [p, p] + [i] * 7 + [p]
         getattr(lib, name).restype = i
@@ -63,18 +68,57 @@ def _check(lib, err: int, what: str):
         raise RuntimeError(f"{what} launch failed: {lib.fused_error_string(err).decode()} ({err})")
 
 
-def gemm_split(rows: int, cout: int, k_total: int) -> tuple[int, int]:
-    """``(splitk, k_tiles_per_split)`` for the conv GEMM's ``_BM x _BN``
-    output tiles and ``_BK``-deep K tiles: layers with too few output tiles
-    to fill the card (the deep 1x1/2x2 Pix2Pix layers) split K over more
-    blocks, each split at least 8 K tiles deep."""
-    tiles = math.ceil(rows / _BM) * math.ceil(cout / _BN)
-    nkt = math.ceil(k_total / _BK)
-    split = 1
-    if tiles < _TARGET_BLOCKS:
-        split = max(1, min(math.ceil(_TARGET_BLOCKS / tiles), nkt // 8))
-    per = math.ceil(nkt / split)
-    return math.ceil(nkt / per), per
+@dataclasses.dataclass(frozen=True)
+class ConvGeometry:
+    """One launch of the conv GEMM: ``tile_rows`` (64 or 128) GEMM rows per
+    tile; ``vec``: A and B staged with 16-byte copies (Cin and Cout hold
+    whole 16-byte chunks); ``splitk`` splits of ``per`` live K tiles each."""
+
+    tile_rows: int
+    vec: bool
+    splitk: int
+    per: int
+
+
+def conv_out(n: int, k: int, stride: int, pad: int) -> int:
+    return (n + 2 * pad - k) // stride + 1
+
+
+def live_taps_1d(n_in: int, n_out: int, k: int, stride: int, pad: int) -> set[int]:
+    """The kernel offsets along one axis that reach a real input for some
+    output: output o reads input o*stride - pad + t through offset t."""
+    return {t for t in range(k) if any(0 <= o * stride - pad + t < n_in for o in range(n_out))}
+
+
+def conv_live_k_tiles(H: int, W: int, cin: int, k: int, stride: int, pad: int, bk: int) -> int:
+    """The ``bk``-deep K tiles (tap-major: tap di*k + dj, then channel) that
+    hold a tap reaching an input for some output: the bound on a block's
+    live tiles. The block's vote keeps a bit a tap, so past ``VOTE_TAPS``
+    taps the kernel walks every K tile, and so does this count."""
+    K = k * k * cin
+    if k * k > VOTE_TAPS:
+        return math.ceil(K / bk)
+    rows = live_taps_1d(H, conv_out(H, k, stride, pad), k, stride, pad)
+    cols = live_taps_1d(W, conv_out(W, k, stride, pad), k, stride, pad)
+    return sum(
+        1 for kt in range(math.ceil(K / bk))
+        if any(t // k in rows and t % k in cols for t in range(kt * bk // cin, (min(kt * bk + bk, K) - 1) // cin + 1))
+    )
+
+
+@functools.cache
+def conv_geometry(B: int, H: int, W: int, cin: int, cout: int, k: int, stride: int, pad: int, esize: int = 4,
+                  aligned: bool = True) -> ConvGeometry:
+    """The conv GEMM's launch for a (B, H, W, cin) -> cout conv with
+    ``esize``-byte operands: ``gemm_plan``'s tiles and K split over M =
+    B*Ho*Wo rows and the live K tiles. ``aligned``: x and w start on a
+    16-byte boundary (a condition of the 16-byte staging)."""
+    epc = 16 // esize
+    vec = aligned and cin % epc == 0 and cout % epc == 0
+    M = B * conv_out(H, k, stride, pad) * conv_out(W, k, stride, pad)
+    nkt = conv_live_k_tiles(H, W, cin, k, stride, pad, phase_bk(esize))
+    bm, splitk, per = gemm_plan(M, math.ceil(cout / PHASE_BN), nkt, vec, esize)
+    return ConvGeometry(bm, vec, splitk, per)
 
 
 def stats_chunks(rows: int, cout: int, sets: int) -> int:
@@ -88,41 +132,49 @@ def stats_chunks(rows: int, cout: int, sets: int) -> int:
 
 def conv_block_cuda(x, w, b, gamma, beta, *, stride, padding, norm, groups, act, eps, deconv):
     """Launch the fused conv (``deconv=False``) or k4/s2 crop-1 deconv
-    (``deconv=True``) + bias + norm + act kernel on float32 CUDA tensors."""
+    (``deconv=True``) + bias + norm + act kernel: x (B, H, W, Cin) and w
+    (k, k, Cin, Cout) CUDA tensors of one dtype, float32 or bfloat16; b,
+    gamma and beta float32 (Cout,) -> y in x's dtype. With a norm the
+    statistics are taken over the GEMM's fp32 output: y itself for float32,
+    a float32 scratch tensor for bfloat16."""
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"{'deconv_block' if deconv else 'conv_block'} takes float32 or bfloat16, got {x.dtype}")
     B, H, W, Cin = x.shape
     k, Cout = w.shape[0], w.shape[-1]
-    require(x, "x", torch.float32)
-    require(w, "w", torch.float32, (k, k, Cin, Cout))
+    require(x, "x", x.dtype)
+    require(w, "w", x.dtype, (k, k, Cin, Cout))
     for name, t in (("b", b), ("gamma", gamma), ("beta", beta)):
         require(t, name, torch.float32, (Cout,))
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, x on {x.device}")
+    f32 = x.dtype == torch.float32
+    esize, aligned = x.element_size(), x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     if deconv:
         if k != 4:
             raise ValueError(f"deconv_block is the k=4 stride-2 crop-1 deconv; got k={k}")
         Ho, Wo = 2 * H, 2 * W
-        geo = phase_geometry(B, H, W, Cin, Cout, 4, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+        # the narrow kernel writes x's dtype: a bf16 norm needs the GEMM's fp32 output
+        geo = phase_geometry(B, H, W, Cin, Cout, esize, aligned, narrow_ok=f32 or norm == "none")
         narrow, tile_rows, vec, splitk, per = geo.narrow, geo.tile_rows, geo.vec, geo.splitk, geo.per
     else:
-        Ho = (H + 2 * padding - k) // stride + 1
-        Wo = (W + 2 * padding - k) // stride + 1
-        narrow, tile_rows, vec = False, 0, False
-        splitk, per = gemm_split(B * Ho * Wo, Cout, k * k * Cin)
-    if Ho < 1 or Wo < 1:
-        raise ValueError(f"empty output for input {tuple(x.shape)}, k={k}, stride={stride}")
-    if max(x.numel(), B * Ho * Wo * Cout) >= 2**31:
+        Ho, Wo = conv_out(H, k, stride, padding), conv_out(W, k, stride, padding)
+        if Ho < 1 or Wo < 1:
+            raise ValueError(f"empty output for input {tuple(x.shape)}, k={k}, stride={stride}")
+        geo = conv_geometry(B, H, W, Cin, Cout, k, stride, padding, esize, aligned)
+        narrow, tile_rows, vec, splitk, per = False, geo.tile_rows, geo.vec, geo.splitk, geo.per
+    out_elems = B * Ho * Wo * Cout
+    if max(x.numel(), w.numel(), splitk * out_elems) >= 2**31:
         raise ValueError("the kernel indexes with 32-bit ints: tensors must hold < 2^31 elements")
     G = groups if norm == "group" else Cout
     if Cout % G:
         raise ValueError(f"groups {G} must divide Cout {Cout}")
-    y = torch.empty((B, Ho, Wo, Cout), dtype=torch.float32, device=x.device)
-    part = (
-        torch.empty((splitk, B * Ho * Wo * Cout), dtype=torch.float32, device=x.device)
-        if splitk > 1
-        else None
-    )
+    y = torch.empty((B, Ho, Wo, Cout), dtype=x.dtype, device=x.device)
+    part = torch.empty((splitk, out_elems), dtype=torch.float32, device=x.device) if splitk > 1 else None
+    pre = None
+    if norm != "none":
+        pre = y if f32 else torch.empty((B, Ho, Wo, Cout), dtype=torch.float32, device=x.device)
     sets = 1 if norm == "batch" else B
     rows = B * Ho * Wo if norm == "batch" else Ho * Wo
     chunks = stats_chunks(rows, Cout, sets)
@@ -132,13 +184,12 @@ def conv_block_cuda(x, w, b, gamma, beta, *, stride, padding, norm, groups, act,
         else None
     )
     lib = library()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
-        err = lib.fused_conv_block_f32(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            y.data_ptr(), None if part is None else part.data_ptr(),
-            None if stats is None else stats.data_ptr(),
-            B, H, W, Cin, Cout, k, stride, padding, int(deconv), NORMS[norm], G, ACTS[act],
-            float(eps), splitk, per, chunks, int(narrow), tile_rows, int(vec),
+        err = getattr(lib, _ENTRY[x.dtype])(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            ptr(pre), ptr(part), ptr(stats), B, H, W, Cin, Cout, k, stride, padding, int(deconv), NORMS[norm], G,
+            ACTS[act], float(eps), splitk, per, chunks, int(narrow), tile_rows, int(vec),
             torch.cuda.current_stream().cuda_stream,
         )
     _check(lib, err, "deconv_block" if deconv else "conv_block")

@@ -2,7 +2,10 @@
 ``ref.py``, a CUDA tensor to the hand-written kernel in ``kernel.py`` (or
 the call raises: there is no fallback on the card).
 
-Signatures follow ``repro.kernels.fused.ops``. The kernels take batch
+Signatures follow ``repro.kernels.fused.ops``, at both serving dtypes: x
+float32 or bfloat16, w cast to x's dtype and bias, gamma and beta to
+float32 on both routes (as ``ref.py`` does), the output in x's dtype. The
+kernels take batch
 statistics over the whole batch, so B > 1 batch norm is exact in the
 kernel too. ``launches`` counts, per function, the calls that launched the
 CUDA kernel — the proof that a run went through it. Every function refuses to
@@ -26,7 +29,9 @@ def reset_launches():
 
 def _affine(x, b, gamma, beta, cout):
     def fill(t, value):
-        return torch.full((cout,), value, dtype=torch.float32, device=x.device) if t is None else t
+        if t is None:
+            return torch.full((cout,), value, dtype=torch.float32, device=x.device)
+        return t.to(torch.float32).contiguous()
 
     return fill(b, 0.0), fill(gamma, 1.0), fill(beta, 0.0)
 
@@ -73,7 +78,7 @@ def conv_block(
             groups=groups, act=act, eps=eps,
         )
     y = conv_block_cuda(
-        x, w, b, gamma, beta, stride=stride, padding=padding, norm=norm, groups=groups,
+        x, w.to(x.dtype).contiguous(), b, gamma, beta, stride=stride, padding=padding, norm=norm, groups=groups,
         act=act, eps=eps, deconv=False,
     )
     launches["conv_block"] += 1
@@ -100,8 +105,8 @@ def deconv_block(
     if not _on_card(x, "deconv_block"):
         return deconv_block_ref(x, w, b, gamma, beta, norm=norm, groups=groups, act=act, eps=eps)
     y = conv_block_cuda(
-        x, w, b, gamma, beta, stride=2, padding=1, norm=norm, groups=groups, act=act, eps=eps,
-        deconv=True,
+        x, w.to(x.dtype).contiguous(), b, gamma, beta, stride=2, padding=1, norm=norm, groups=groups, act=act,
+        eps=eps, deconv=True,
     )
     launches["deconv_block"] += 1
     return y

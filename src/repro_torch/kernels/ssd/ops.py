@@ -5,9 +5,11 @@ the kernel takes every length, ragged tails included).
 
 The signature follows ``repro.kernels.ssd.ops.ssd`` without its TPU knobs
 (``use_pallas``, ``interpret``), plus ``return_state``, which the decode
-cache needs. On the card ``chunk`` sets nothing: the kernel steps 64 at a
-time (see ``csrc/ssd.cu``), the same function rounded elsewhere, and its
-final state is float32 (the plain version's is in x's dtype).
+cache needs. On the card ``chunk`` sets nothing: the kernels cut the
+sequence into chunks of ``kernel.CHUNK`` (64) steps and scan them in
+parallel on the tensor cores, passing only the chunk states serially (see
+``csrc/ssd.cu``): the same function rounded elsewhere. Their final state is
+float32 (the plain version's is in x's dtype).
 ``launches`` counts the calls that launched the CUDA kernel. Like the
 other kernel ops, it refuses to run where autograd would need its
 gradient (``kernels.refuse_grad``).
@@ -35,9 +37,9 @@ def ssd(x, dt, A, B, C, chunk: int = 128, return_state: bool = False):
         return ssd_chunked(x, dt, A, B, C, chunk=chunk, return_state=return_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
-    out = ssd_cuda(
-        x.contiguous(), dt.to(x.dtype).contiguous(), A.to(torch.float32).contiguous(),
-        B.to(x.dtype).contiguous(), C.to(x.dtype).contiguous(), return_state=return_state,
+    out = ssd_cuda(  # x, B and C as they come (row-strided views are read in place)
+        x, dt.to(x.dtype).contiguous(), A.to(torch.float32).contiguous(), B.to(x.dtype), C.to(x.dtype),
+        return_state=return_state,
     )
     launches["ssd"] += 1
     return out

@@ -8,8 +8,10 @@ the full-sequence causal self-attention (``prefill``, and ``__call__``
 with ``causal=True`` and no ``kv_x``) goes through the flash-attention
 kernel, ``kernels.attention.ops.attention``, when the mask's positions are
 the kernel's: the token indices (``positions=None``, or positions the model
-built as ``arange(S)`` and flagged with ``index_positions=True``). A
-caller's own positions take the plain route. ``window`` is a Python int
+built as ``arange(S)`` and flagged with ``index_positions=True``) and
+autograd needs no gradient through it (the kernel has no backward). A
+caller's own positions, and a forward that autograd differentiates, take
+the plain route, on both devices. ``window`` is a Python int
 (0 or None: global). MLA and the cross-attention helpers come with the
 models that use them.
 """
@@ -20,6 +22,7 @@ import math
 
 import torch
 
+from ..kernels import grad_route
 from ..kernels.attention import ops as attention_ops
 from .linear import MultiLinear, OutputLinear
 from .module import Module
@@ -130,11 +133,13 @@ class Attention(Module):
     def _attend(self, q, k, v, positions, window, causal=True, kv_positions=None, cross=False,
                 index_positions=False):
         """Causal self-attention over the full sequence goes through the
-        kernel on a CUDA tensor whose mask positions are the token indices;
-        everything else takes the JAX package's path (``_sdpa``, or
-        ``_sdpa_chunked`` above ``attn_chunk``)."""
+        kernel on a CUDA tensor whose mask positions are the token indices,
+        unless autograd needs its gradient; everything else takes the JAX
+        package's path (``_sdpa``, or ``_sdpa_chunked`` above
+        ``attn_chunk``)."""
         S, Sk = q.shape[1], k.shape[1]
-        if causal and not cross and q.device.type == "cuda" and (positions is None or index_positions):
+        if (causal and not cross and q.device.type == "cuda" and (positions is None or index_positions)
+                and not grad_route("flash_attention", q, k, v)):
             return attention_ops.attention(q, k, v, causal=True, window=max(window or 0, 0),
                                            softcap=self.softcap, scale=self._scale)
         q_pos = positions if positions is not None else _arange(S, q.device)

@@ -5,8 +5,11 @@
 re-exported here) is the oracle of the SSD kernel. ``Mamba2Block`` is the
 full block: in-projections -> causal depthwise conv -> SSD -> gated RMSNorm
 -> out_proj, with a single-token ``decode`` path that carries (conv buffer,
-ssm state). Its full-sequence scan goes through ``kernels.ssd.ops.ssd``:
-the plain version on a CPU tensor, the CUDA kernel on a CUDA tensor.
+ssm state). Its full-sequence scan goes through ``kernels.ssd.ops.ssd``
+(the plain version on a CPU tensor, the CUDA kernel on a CUDA tensor) where
+autograd needs no gradient through it, and through ``ssd_chunked`` where it
+does, on both devices: the kernel has no backward, and the JAX package's
+block always runs ``ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels import grad_route
 from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ref import segsum, ssd_chunked  # noqa: F401  (re-exported)
 from .module import Module, ParamSpec, lecun_init, normal_init, ones_init, zeros_init
@@ -106,7 +110,8 @@ class Mamba2Block(Module):
         Cmat = xbc[..., di + g * n :].reshape(B_, S, g, n)
         dt = F.softplus(dt.float() + p["dt_bias"]).to(x.dtype)  # (B,S,H)
         A = -torch.exp(p["A_log"].float()).to(x.dtype)  # (H,)
-        out = ssd_ops.ssd(xs, dt, A, Bmat, Cmat, chunk=min(self.chunk, S), return_state=return_state)
+        scan = ssd_chunked if grad_route("ssd", xs, dt, A, Bmat, Cmat) else ssd_ops.ssd
+        out = scan(xs, dt, A, Bmat, Cmat, chunk=min(self.chunk, S), return_state=return_state)
         y, state = out if return_state else (out, None)
         y = y + xs * p["D"].to(x.dtype)[None, None, :, None]
         y = RMSNorm(di)(p["norm"], y.reshape(B_, S, di)) * F.silu(z)

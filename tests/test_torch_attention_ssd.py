@@ -404,11 +404,12 @@ def test_cuda_flash_attention_matches_plain_version_on_card():
 def test_cuda_ssd_matches_plain_version_on_card():
     """The kernel against ``ssd_chunked`` in f32 on the same inputs, y and
     final state, in f32 (atol 3e-3, rtol 2e-2) and bf16 (atol 0.15, rtol
-    2e-2): the JAX package's pins, with Mamba2-2.7B's class (h 80, n 128)."""
+    2e-2): the JAX package's pins, with Mamba2-2.7B's class (h 80, n 128)
+    and a last chunk of one step (65 = 64 + 1)."""
     dev = _card()
     ssd_ops.reset_launches()
     n = 0
-    for b, s, h, p, g, nn_, ch in SSD_CASES + [(1, 512, 80, 64, 1, 128, 256)]:
+    for b, s, h, p, g, nn_, ch in SSD_CASES + [(1, 512, 80, 64, 1, 128, 256), (2, 65, 4, 32, 2, 32, 64)]:
         for dtype, atol in ((torch.float32, 3e-3), (torch.bfloat16, 0.15)):
             x, dt, A, B, C = (torch.from_numpy(a).to(dev) for a in _ssd_inputs(b, s, h, p, g, nn_))
             x, dt, B, C = (t.to(dtype) for t in (x, dt, B, C))

@@ -141,13 +141,21 @@ def test_ops_reject_what_the_kernels_do_not_take():
     [(1, 512, 8192), (4, 512, 8192), (4, 512, 2048), (16384, 64, 48), (16, 2, 64)],
 )
 def test_gemm_split_covers_k_exactly_once(rows, cout, k_total):
-    """The conv GEMM's split of K (deconv_block's is
-    ``deconv.kernel.phase_geometry``'s, pinned in test_torch_deconv*.py)."""
-    split, per = kernel.gemm_split(rows, cout, k_total)
-    nkt = -(-k_total // 16)
-    assert split >= 1 and (split - 1) * per < nkt <= split * per  # no empty split, no gap
-    if rows * cout >= 64 * 64 * 264:
-        assert split == 1
+    """The conv GEMM's split of K (``conv_geometry``; deconv_block's is
+    ``deconv.kernel.phase_geometry``'s, pinned in test_torch_deconv*.py),
+    for a k x k conv whose every tap is live (stride 1, ``same`` padding,
+    ``rows`` output pixels as one row of a batch): the splits cover the
+    live K tiles with none empty; wide layers take no split; per block,
+    ``test_torch_conv_tc.py``."""
+    k = 4 if k_total >= 16 * 512 else 1
+    cin = k_total // (k * k)
+    pad = k // 2 if k > 1 else 0
+    for esize in (4, 2):
+        geo = kernel.conv_geometry(1, 1, rows, cin, cout, k, 1, pad, esize)
+        nkt = kernel.conv_live_k_tiles(1, rows, cin, k, 1, pad, 128 // esize)
+        assert geo.splitk >= 1 and (geo.splitk - 1) * geo.per < nkt <= geo.splitk * geo.per  # no empty split, no gap
+        if rows * cout >= 64 * 64 * 264:
+            assert geo.splitk == 1
 
 
 @pytest.mark.parametrize("rows,cout,sets", [(16384, 64, 1), (4, 512, 1), (1, 512, 1), (64, 16, 2)])
@@ -221,30 +229,44 @@ def test_smoke_bound_counts_only_real_taps(H, W, k, stride, pad, transposed):
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions_on_card():
-    """Each kernel against its plain version on the card (TF32 off); the
-    deconv cases add a Cin % 32 != 0 case off the 16-byte staging, a wide
-    split-K case and the Cout-3 layer at batch 8."""
+    """Each kernel against its plain version on the card (TF32 off), conv
+    and deconv blocks in f32 (1e-4) and bf16 (5e-2, the JAX package's pin);
+    the conv cases add the 2x2 -> 1x1 bottleneck (4 of 16 taps live, K
+    split), Cin 16 (two taps per f32 K tile) and a 7x7 kernel on a 2x2 map
+    (49 taps, past the block vote, 4 reaching the input), the deconv cases a Cin % 32
+    != 0 case off the 16-byte staging, a wide split-K case, the Cout-3 layer
+    at batch 8 and a Cout-4 layer with a norm (the GEMM, not the narrow
+    kernel, in bf16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     ops.reset_launches()
-    for shape, k, stride, pad, cout, norm, act in CONV_CASES:
-        x, w, b, gamma, beta = (torch.from_numpy(a).to(dev) for a in _inputs(shape, shape[-1], cout, k))
-        kw = dict(stride=stride, padding=pad, norm=norm, groups=4 if norm == "group" else 1, act=act)
-        got = ops.conv_block(x, w, b, gamma, beta, **kw)
-        want = tref.conv_block_ref(x, w, b, gamma, beta, **kw)
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    conv_cases = CONV_CASES + [
+        ((1, 2, 2, 512), 4, 2, 1, 512, "batch", "lrelu"), ((1, 64, 64, 16), 3, 1, 1, 32, "batch", "silu"),
+        ((1, 2, 2, 64), 7, 2, 3, 64, "none", "lrelu"),
+    ]
     deconv_cases = DECONV_CASES + [
         ((2, 8, 8, 40), 64, "batch", "relu"), ((1, 16, 16, 1024), 256, "batch", "relu"),
-        ((8, 128, 128, 128), 3, "none", "tanh"),
+        ((8, 128, 128, 128), 3, "none", "tanh"), ((1, 8, 8, 16), 4, "batch", "relu"),
     ]
-    for shape, cout, norm, act in deconv_cases:
-        x, w, b, gamma, beta = (torch.from_numpy(a).to(dev) for a in _inputs(shape, shape[-1], cout, 4))
-        got = ops.deconv_block(x, w, b, gamma, beta, norm=norm, act=act)
-        want = tref.deconv_block_ref(x, w, b, gamma, beta, norm=norm, act=act)
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    for tdt, atol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        for shape, k, stride, pad, cout, norm, act in conv_cases:
+            x, w, b, gamma, beta = (torch.from_numpy(a).to(dev) for a in _inputs(shape, shape[-1], cout, k))
+            x = x.to(tdt)
+            kw = dict(stride=stride, padding=pad, norm=norm, groups=4 if norm == "group" else 1, act=act)
+            got = ops.conv_block(x, w, b, gamma, beta, **kw)
+            want = tref.conv_block_ref(x, w, b, gamma, beta, **kw)
+            assert got.dtype == tdt
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+        for shape, cout, norm, act in deconv_cases:
+            x, w, b, gamma, beta = (torch.from_numpy(a).to(dev) for a in _inputs(shape, shape[-1], cout, 4))
+            x = x.to(tdt)
+            got = ops.deconv_block(x, w, b, gamma, beta, norm=norm, act=act)
+            want = tref.deconv_block_ref(x, w, b, gamma, beta, norm=norm, act=act)
+            assert got.dtype == tdt
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
     for shape, window, reps in SPPF_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, device=dev).to(dtype)
@@ -252,7 +274,7 @@ def test_cuda_kernels_match_plain_versions_on_card():
             assert torch.equal(got, tref.sppf_pyramid_ref(x, window=window, reps=reps))
     torch.cuda.synchronize()
     assert ops.launches == {
-        "conv_block": len(CONV_CASES),
-        "deconv_block": len(deconv_cases),
+        "conv_block": 2 * len(conv_cases),
+        "deconv_block": 2 * len(deconv_cases),
         "sppf_pyramid": 2 * len(SPPF_CASES),
     }
