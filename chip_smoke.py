@@ -9,8 +9,9 @@ toolkit, this
 1. prints the card's name and power limit (nvidia-smi) and builds the
    hand-written kernels of ``src/repro_torch/kernels/*/csrc`` with nvcc,
    one process per source, all at once; prints ptxas' registers, spills and
-   shared memory of the tensor-core instantiations (``flash_tc_report``,
-   ``phase_report``, ``ssd_report``);
+   shared memory of the tensor-core instantiations (``flash_tc_report``:
+   the bf16 and f32 flash kernels at each head width; ``phase_report``,
+   ``ssd_report``);
 2. holds each kernel against its plain PyTorch version on the card at the
    main path's shape classes, conv/deconv blocks also in bf16 (TF32 off;
    max abs error <= 1e-4 in f32, <= 5e-2 in bf16, SPPF bit-exact), timing
@@ -73,9 +74,10 @@ toolkit, this
    ``flash_attention`` and 32 ``ssd`` launches; last-token logits, KV caches
    and SSM / conv states held against the same prefill on the plain ops on
    the card (``PREFILL_F32_TOL``); ms per prefill, tokens/s, peak memory,
-   the bf16 prefill's device time by kind of kernel and idle share
-   (``torch.profiler``); the calls of one prefill checked and timed by
-   shape, as in 8, the SSD call also split by pass;
+   each prefill's device time by kind of kernel and idle share
+   (``torch.profiler``); the calls of one prefill in each dtype checked and
+   timed by shape, as in 8 (so the flash and SSD time of each prefill), the
+   SSD calls also split by pass;
 10. decodes at full width: ``decode_step`` over a 16-token prompt with f32
    activations and caches against ``__call__`` at the same positions
    (atol 5e-2, rtol 1e-2), then ``greedy_generate`` with batch 4, prompt 16
@@ -213,8 +215,9 @@ def bound(name, a, bias=True):
     bias, norm (3 statistics + 4 apply) and act ops per output over the
     peak rate of the operands' type (``FP32_ACCURATE_FLOPS``, or bf16 tensor
     cores); for
-    SPPF, one max per real window tap beyond the first over the one-op fp32
-    rate."""
+    SPPF, the maxes of a separable pool (a row max, then a column max, of
+    the real window taps; one max per tap beyond the first) over the one-op
+    fp32 rate."""
     x = a["x"]
     B, H, W, C = x.shape
     esize = x.element_size()
@@ -223,7 +226,7 @@ def bound(name, a, bias=True):
         th = taps_1d(H, H, win, 1, win // 2)[0]
         tw = taps_1d(W, W, win, 1, win // 2)[0]
         nbytes = (x.numel() + B * H * W * C * (reps + 1)) * esize
-        ops = reps * B * C * (th * tw - H * W)
+        ops = reps * B * C * (H * (tw - W) + W * (th - H))
         return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_SIMPLE * 1e3
     w = a["w"]
     k, cout = w.shape[0], w.shape[-1]
@@ -824,13 +827,14 @@ def ptxas_report(log):
     return out
 
 
-def flash_tc_report(log, smem_bytes):
-    """The bf16 flash instantiations (``flash_kernel_tc<D>``) in a build
-    log, by head width: ptxas' registers and spills, and the dynamic
-    shared memory a launch asks for (``smem_bytes(D)``)."""
+def flash_tc_report(log, smem_bytes, kernel="flash_kernel_tc"):
+    """The flash tensor-core instantiations in a build log, by head width:
+    ``flash_kernel_tc<D>`` (bf16) or, with ``kernel="flash_kernel_tf32"``,
+    the f32 entry's; ptxas' registers and spills, and the dynamic shared
+    memory a launch asks for (``smem_bytes(D)``)."""
     rows = {}
     for fn, r in ptxas_report(log).items():
-        if m := re.search(r"flash_kernel_tcILi(\d+)E", fn):
+        if m := re.search(rf"{kernel}ILi(\d+)E", fn):
             D = int(m.group(1))
             rows[D] = {**r, "dynamic_smem": smem_bytes(D)}
     return dict(sorted(rows.items()))
@@ -1015,7 +1019,8 @@ def prefill_time_split(torch, prefill, params, tokens):
 def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref):
     """Hymba-1.5B's prefill at full width, through the kernels and on the
     plain ops. Returns the config, the parameters, the main-path launches,
-    the kernels' calls of one bf16 prefill grouped by shape, and rows."""
+    the kernels' calls of one prefill in each dtype grouped by shape
+    (``{dtype name: [(kernel, args, count)]}``), and rows."""
     import numpy as np
 
     from repro_torch import kernels
@@ -1036,11 +1041,11 @@ def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, 
     ).to(dev)
     groups = {}
 
-    def recorder(name, real):
+    def recorder(key, name, real):
         def f(*args, **kw):
             a = lm_bench.args(name, *args, **kw)
             sig = (name, describe_lm(name, a), a.get("window"), a.get("chunk"))
-            groups.setdefault(sig, [a, 0])[1] += 1
+            groups.setdefault(key, {}).setdefault(sig, [a, 0])[1] += 1
             return real(*args, **kw)
 
         return f
@@ -1049,11 +1054,9 @@ def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, 
     for dtype in (torch.float32, torch.bfloat16):
         key = str(dtype)[6:]
         prefill = make_lm_prefill(build_model(dataclasses.replace(cfg, act_dtype=dtype)))
-        if dtype == torch.bfloat16:  # warm-up, recording the kernels' calls by shape
-            with patched(attn_ops, "attention", recorder("flash_attention", attn_ops.attention)), \
-                    patched(ssd_ops, "ssd", recorder("ssd", ssd_ops.ssd)):
-                prefill(params, tokens)
-        else:
+        # warm-up, recording the kernels' calls by shape
+        with patched(attn_ops, "attention", recorder(key, "flash_attention", attn_ops.attention)), \
+                patched(ssd_ops, "ssd", recorder(key, "ssd", ssd_ops.ssd)):
             prefill(params, tokens)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1072,16 +1075,15 @@ def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, 
             raise AssertionError(f"{key} prefill launched {launches}, want {cfg.n_layers} of each; plain routes "
                                  f"taken for autograd {dict(kernels.grad_routes)}, want none")
         ms, peak = start.elapsed_time(end), torch.cuda.max_memory_allocated()
-        if dtype == torch.bfloat16:
-            split = prefill_time_split(torch, prefill, params, tokens)
-            rows["bfloat16_split"] = split
-            if not split:
-                print("prefill bfloat16 time split: not measured (the profiler recorded no kernel)")
-            else:
-                kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["by_kind"].items(), key=lambda kv: -kv[1]))
-                print(f"prefill bfloat16 under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy "
-                      f"{split['busy_ms']:.2f} ms ({kinds}), idle {100 * split['idle_share']:.1f}%; largest other: "
-                      + "; ".join(f"{k} {v:.2f}" for k, v in split["top_other"]))
+        split = prefill_time_split(torch, prefill, params, tokens)
+        rows[f"{key}_split"] = split
+        if not split:
+            print(f"prefill {key} time split: not measured (the profiler recorded no kernel)")
+        else:
+            kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["by_kind"].items(), key=lambda kv: -kv[1]))
+            print(f"prefill {key} under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy "
+                  f"{split['busy_ms']:.2f} ms ({kinds}), idle {100 * split['idle_share']:.1f}%; largest other: "
+                  + "; ".join(f"{k} {v:.2f}" for k, v in split["top_other"]))
         with patched(attn_ops, "attention", attn_ref.attention_ref), patched(ssd_ops, "ssd", ssd_ref.ssd_chunked):
             start.record()
             plain = prefill(params, tokens)
@@ -1116,12 +1118,16 @@ def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, 
         if not d <= tol or not d16 <= tol16:
             raise AssertionError(f"prefill {leaf}: kernel route vs plain ops beyond tolerance {checks[leaf]}")
     rows["checks"] = checks
-    calls = [(name, a, count) for (name, *_), (a, count) in groups.items()]
-    if sorted((nm, c) for nm, _, c in calls) != sorted(
-        [("flash_attention", cfg.n_layers - len(cfg.global_layers)), ("flash_attention", len(cfg.global_layers)),
-         ("ssd", cfg.n_layers)]
-    ):
-        raise AssertionError(f"unexpected prefill kernel calls {[(nm, describe_lm(nm, a), c) for nm, a, c in calls]}")
+    calls = {}
+    for key, g in groups.items():
+        calls[key] = [(name, a, count) for (name, *_), (a, count) in g.items()]
+        if sorted((nm, c) for nm, _, c in calls[key]) != sorted(
+            [("flash_attention", cfg.n_layers - len(cfg.global_layers)), ("flash_attention", len(cfg.global_layers)),
+             ("ssd", cfg.n_layers)]
+        ):
+            raise AssertionError(
+                f"unexpected {key} prefill kernel calls {[(nm, describe_lm(nm, a), c) for nm, a, c in calls[key]]}"
+            )
     return cfg, params, launches, calls, rows
 
 
@@ -1337,14 +1343,16 @@ def main() -> int:
                 print("  ptxas:", line.split(":", 1)[-1].strip())
     for k in kernel_mods:
         k.library()
-    flash_tc = flash_tc_report(builds[kernel_mods.index(attn_kernel)]["log"],
-                               attn_kernel.library().flash_attention_bf16_smem_bytes)
-    if not flash_tc:
-        print("flash_kernel_tc: no ptxas report (the library was built before this run)")
-    for D, r in flash_tc.items():
-        print(f"flash_kernel_tc<{D}> (bf16): {r['registers']} registers, spill stores {r['spill_stores']} B, "
-              f"spill loads {r['spill_loads']} B, shared memory {r['dynamic_smem']} B dynamic + "
-              f"{r['static_smem']} B static")
+    flash_tc = {}
+    for kern, dt in (("flash_kernel_tc", "bf16"), ("flash_kernel_tf32", "f32")):
+        flash_tc[kern] = flash_tc_report(builds[kernel_mods.index(attn_kernel)]["log"],
+                                         getattr(attn_kernel.library(), f"flash_attention_{dt}_smem_bytes"), kern)
+        if not flash_tc[kern]:
+            print(f"{kern}: no ptxas report (the library was built before this run)")
+        for D, r in flash_tc[kern].items():
+            print(f"{kern}<{D}> ({dt}): {r['registers']} registers, spill stores {r['spill_stores']} B, "
+                  f"spill loads {r['spill_loads']} B, shared memory {r['dynamic_smem']} B dynamic + "
+                  f"{r['static_smem']} B static")
     phase_tc = {}
     for mod in (deconv_kernel, kernel):
         lib_name = Path(mod._SRC).name
@@ -1582,29 +1590,34 @@ def main() -> int:
     hcfg, hparams, lm_launches, lm_calls, prefill_rows = hymba_prefill_phase(
         torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref
     )
-    lm_tot = {n: dict.fromkeys(fields + ("max_abs_err",), 0.0) for n in LM_KERNELS}
-    lm_lib_none = set()
-    for name, a, count in lm_calls:
-        r = lm_bench.run(name, a)
-        rows.append({"phase": "prefill bf16", "kernel": name, "shape": describe_lm(name, a), "count": count, **r})
-        if r["library_ms"] is None:
-            lm_lib_none.add(name)
-        for f in fields:
-            lm_tot[name][f] += (r[f] or 0.0) * count
-        lm_tot[name]["max_abs_err"] = max(lm_tot[name]["max_abs_err"], r["max_abs_err"])
-        ctl = f" (plain bf16 {r['bf16_plain_vs_f32']:.2e}, |out| rms {r['out_rms']:.2e})" if "bf16_plain_vs_f32" in r else ""
-        rate = f" ({achieved(r)})" if name == "flash_attention" else ""
-        print(f"{name:15s} {describe_lm(name, a):52s} x{count}: kernel {r['ms']:.4f} ms{rate}, plain {r['plain_ms']:.4f}, "
-              f"bound {r['bound_ms']:.5f}, max_err vs f32 {r['max_abs_err']:.2e}{ctl}")
-        if name == "ssd":
-            split_ssd(a, "prefill bf16", count)
+    # each dtype's prefill calls on their own, by shape; the kernels line takes the bf16 prefill's
+    lm_tot, lm_lib_none = {}, set()
+    for key in ("float32", "bfloat16"):
+        tot_k = lm_tot[key] = {n: dict.fromkeys(fields + ("max_abs_err",), 0.0) for n in LM_KERNELS}
+        dt = "f32" if key == "float32" else "bf16"
+        for name, a, count in lm_calls[key]:
+            r = lm_bench.run(name, a)
+            rows.append({"phase": f"prefill {dt}", "kernel": name, "shape": describe_lm(name, a), "count": count, **r})
+            if r["library_ms"] is None:
+                lm_lib_none.add(name)
+            for f in fields:
+                tot_k[name][f] += (r[f] or 0.0) * count
+            tot_k[name]["max_abs_err"] = max(tot_k[name]["max_abs_err"], r["max_abs_err"])
+            ctl = (f" (plain bf16 {r['bf16_plain_vs_f32']:.2e}, |out| rms {r['out_rms']:.2e})"
+                   if "bf16_plain_vs_f32" in r else "")
+            rate = f" ({achieved(r)})" if name == "flash_attention" else ""
+            print(f"{name:15s} {describe_lm(name, a):52s} x{count}: kernel {r['ms']:.4f} ms{rate}, plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f}, max_err vs f32 {r['max_abs_err']:.2e}{ctl}")
+            if name == "ssd":
+                split_ssd(a, f"prefill {dt}", count)
+        peak = BF16_FLOPS if key == "bfloat16" else FP32_ACCURATE_FLOPS
+        for n, tot in tot_k.items():
+            lib = "none" if n in lm_lib_none else f"{tot['library_ms']:.4f}"
+            rate = (f" ({tot['ops_ms'] * peak / tot['ms'] / 1e12:.2f} TFLOP/s, "
+                    f"{100 * tot['bound_ms'] / tot['ms']:.2f}% of the bound)") if n == "flash_attention" else ""
+            print(f"{n:15s} per {dt} prefill ({lm_launches[n]} calls): kernel {tot['ms']:.4f} ms on the card{rate}, "
+                  f"plain {tot['plain_ms']:.4f}, library {lib}, bound {tot['bound_ms']:.5f} | {smi}")
     del lm_calls
-    for n, tot in lm_tot.items():
-        lib = "none" if n in lm_lib_none else f"{tot['library_ms']:.4f}"
-        rate = (f" ({tot['ops_ms'] * BF16_FLOPS / tot['ms'] / 1e12:.2f} TFLOP/s, "
-                f"{100 * tot['bound_ms'] / tot['ms']:.2f}% of the bound)") if n == "flash_attention" else ""
-        print(f"{n:15s} per bf16 prefill ({lm_launches[n]} calls): kernel {tot['ms']:.4f} ms on the card{rate}, "
-              f"plain {tot['plain_ms']:.4f}, library {lib}, bound {tot['bound_ms']:.5f} | {smi}")
 
     print("-- Hymba-1.5B decode at full width (f32 activations and caches)")
     decode_row = hymba_decode_phase(torch, smi, dev, hcfg, hparams)
@@ -1628,7 +1641,7 @@ def main() -> int:
         "library_ms": deconv_tot["library_ms"],
     })
     for n, (source, replaces) in LM_KERNELS.items():
-        tot = lm_tot[n]
+        tot = lm_tot["bfloat16"][n]
         kernels.append({
             "name": n, "route": "cuda", "source": source, "replaces": replaces,
             "launches": lm_launches[n], "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
@@ -1645,7 +1658,7 @@ def main() -> int:
              "phase_ptxas": phase_tc, "ssd_ptxas": ssd_tc, "ssd_split": ssd_split,
              "bf16_forward": {"launches": bf16_launches, "checks": bf16_checks},
              "hymba_prefill": prefill_rows, "lm_per_prefill": lm_tot, "hymba_decode": decode_row,
-             "flash_tc_ptxas": flash_tc,
+             "flash_ptxas": flash_tc,
              "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

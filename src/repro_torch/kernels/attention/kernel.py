@@ -8,10 +8,11 @@ with a plain C interface at first use (``build()``, through
 ``flash_attention_cuda`` takes CUDA tensors only: it checks device, dtype,
 shape and contiguity, allocates the output with ``torch.empty``, launches
 on the current stream and raises if the launch failed. float32 launches the
-fp32 FMA kernel, bfloat16 the tensor-core kernel (``flash_kernel_tc``),
-which copies 16-byte chunks: a bf16 tensor whose data does not start on a
-16-byte boundary (a view at an odd offset) is copied first. Dispatch
-between the kernel and its plain version is ``ops.py``'s job.
+3xTF32 tensor-core kernel (``flash_kernel_tf32``), bfloat16 the bf16
+tensor-core kernel (``flash_kernel_tc``). Both copy 16-byte chunks: a
+tensor whose data does not start on a 16-byte boundary (a view at an odd
+offset) is copied first. Dispatch between the kernel and its plain version
+is ``ops.py``'s job.
 """
 from __future__ import annotations
 
@@ -45,8 +46,9 @@ def library() -> ctypes.CDLL:
     for name in _ENTRY.values():
         getattr(lib, name).argtypes = [p] * 4 + [i] * 8 + [f, f, p]
         getattr(lib, name).restype = i
-    lib.flash_attention_bf16_smem_bytes.argtypes = [i]
-    lib.flash_attention_bf16_smem_bytes.restype = i
+    for name in ("flash_attention_f32_smem_bytes", "flash_attention_bf16_smem_bytes"):
+        getattr(lib, name).argtypes = [i]
+        getattr(lib, name).restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -87,8 +89,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0, softcap=
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     if max(q.numel(), k.numel()) >= 2**31:
         raise ValueError("the kernel indexes rows with 32-bit ints: tensors must hold < 2^31 elements")
-    if q.dtype == torch.bfloat16:
-        q, k, v = aligned16(q), aligned16(k), aligned16(v)
+    q, k, v = aligned16(q), aligned16(k), aligned16(v)
     o = torch.empty_like(q)
     lib = library()
     with torch.cuda.device(q.device):

@@ -55,13 +55,23 @@
 //
 // sppf_pyramid (sppf_pyramid_f32 / sppf_pyramid_bf16)
 //   Replaces: repro/kernels/fused/kernel.py, sppf_pyramid_pallas (_sppf_kernel).
-//   Bound on this card: bytes (read C, write 4C per pixel; 25 compares each).
-//   Design: one block per (sample, channel tile) holds the H x W x c_tile tile
-//   and its pooled successor in shared memory, runs the cascaded window x
-//   window stride-1 max pools there with out-of-range taps skipped (the -inf
-//   halo), and writes each pyramid level straight to its slice of the 4C
-//   concat. Taps are visited in row-major order with torch's max_pool rule
-//   (take v when v > m or v is NaN), so the result is bit-exact.
+//   Bound on this card: bytes (read C, write 4C per pixel; 2 x window
+//   compares a level); at YOLOv8's (1, 8, 8, 128) a call moves 160 KB, so
+//   launch latency and the chain of dependent steps inside a block set its
+//   time, not the work.
+//   Design: the blocks spread over the card: the wrapper (fused/kernel.py
+//   sppf_geometry) picks ct channels and rb output rows per block so that
+//   the grid reaches one block per SM (256 blocks of 4 channels x 1 row at
+//   (1, 8, 8, 128)). A block copies its rows plus a halo of reps * pad rows
+//   into shared memory, writing the input slice of the concat in the same
+//   pass, and runs each level as a separable pool: a window-wide row max,
+//   then a window-tall column max (2 x window compares instead of
+//   window^2), with out-of-range taps skipped (the -inf halo). Threads run
+//   along C (coalesced loads and stores, conflict-free shared memory) and
+//   step their pixels without an integer division. Taps go left to right,
+//   then top to bottom, with torch's max_pool rule (take v when v > m or v
+//   is NaN): the same value, bit for bit, as a row-major walk of the
+//   window.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -385,59 +395,94 @@ __global__ void norm_act_kernel(const float* pre, O* y, const float* __restrict_
   }
 }
 
+constexpr int SPPF_THREADS = 256;
+
+// One block per (channel tile, band of rb output rows, sample); threads
+// (c, ty): c the channel in the tile (lanes along C), ty the first of the
+// pixels it walks. The block holds its rows and reps * pad rows of halo
+// on each side (clipped to the map), at every level, in two fp32 planes
+// (pixel-major, ct channels a pixel). A level is a window-wide row max
+// into rmax, then a window-tall column max back into cur. Rows outside the
+// region are left out like the -inf padding: that changes only rows
+// further than (reps - level) * pad from the band, which no later level
+// reads for the band.
 template <typename T>
-__global__ void sppf_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int C,
-                            int ct, int window, int reps) {
+__global__ void __launch_bounds__(SPPF_THREADS)
+sppf_kernel(const T* __restrict__ x, T* __restrict__ out, int H, int W, int C, int rb, int window, int reps) {
   extern __shared__ float smem[];
-  float* cur = smem;
-  float* nxt = smem + H * W * ct;
-  const int b = blockIdx.y;
+  const int ct = blockDim.x, ny = blockDim.y;
+  const int c = threadIdx.x, ty = threadIdx.y;
   const int c0 = blockIdx.x * ct;
-  const int n = H * W * ct;
+  const int h0 = blockIdx.y * rb, h1 = min(H, h0 + rb);
+  const int pad = window / 2;
+  const int lo = max(0, h0 - reps * pad), hi = min(H, h1 + reps * pad);
+  const int rows = hi - lo, n = rows * W;  // the region: image pixels lo * W .. hi * W
+  float* cur = smem;            // the region at the current level
+  float* rmax = smem + n * ct;  // its row maxima
+  const bool live = c0 + c < C;
   const size_t OC = (size_t)(reps + 1) * C;
-  const size_t pix0 = (size_t)b * H * W;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int c = i % ct, p = i / ct;
-    if (c0 + c < C) {
-      const T v = x[(pix0 + p) * C + c0 + c];
-      cur[i] = to_f(v);
-      out[(pix0 + p) * OC + c0 + c] = v;
-    }
+  const size_t pix0 = (size_t)blockIdx.z * H * W + (size_t)lo * W;
+  const T* xr = x + pix0 * C + c0 + c;
+  T* orow = out + pix0 * OC + c0 + c;
+  // the region pixel i = ty + k ny as (row, col), stepped without a division
+  const int r_first = ty / W, w_first = ty - r_first * W;
+  const int dr = ny / W, dw = ny - dr * W;
+  const int band_lo = h0 - lo, band_hi = h1 - lo;  // the band's rows in the region
+
+  for (int i = ty, r = r_first, w = w_first; i < n; i += ny) {
+    const T v = live ? xr[(size_t)i * C] : from_f<T>(0.f);
+    cur[i * ct + c] = to_f(v);
+    if (live && r >= band_lo && r < band_hi) orow[(size_t)i * OC] = v;
+    r += dr;
+    w += dw;
+    if (w >= W) w -= W, ++r;
   }
   __syncthreads();
-  const int pad = window / 2;
-  for (int r = 1; r <= reps; ++r) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int c = i % ct, p = i / ct;
-      const int h = p / W, w = p - h * W;
+  for (int level = 1; level <= reps; ++level) {
+    // row max, taps left to right; torch's max_pool rule: v is taken when
+    // v > m or v is NaN. Max has no rounding, and the separable order keeps
+    // which of equal values (+-0) or of NaNs wins: the result is the
+    // row-major window walk's, bit for bit.
+    for (int i = ty, r = r_first, w = w_first; i < n; i += ny) {
       float m = -INFINITY;
-      for (int dh = -pad; dh <= pad; ++dh) {
-        const int hh = h + dh;
-        if (hh < 0 || hh >= H) continue;
-        for (int dw = -pad; dw <= pad; ++dw) {
-          const int ww = w + dw;
-          if (ww < 0 || ww >= W) continue;
-          const float v = cur[(hh * W + ww) * ct + c];
-          if (v > m || isnan(v)) m = v;
-        }
+      for (int d = -pad; d <= pad; ++d) {
+        if (w + d < 0 || w + d >= W) continue;
+        const float v = cur[(i + d) * ct + c];
+        if (v > m || isnan(v)) m = v;
       }
-      nxt[i] = m;
-      if (c0 + c < C) out[(pix0 + p) * OC + (size_t)r * C + c0 + c] = from_f<T>(m);
+      rmax[i * ct + c] = m;
+      r += dr;
+      w += dw;
+      if (w >= W) w -= W, ++r;
     }
     __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
+    // column max of the row maxima, taps top to bottom
+    for (int i = ty, r = r_first, w = w_first; i < n; i += ny) {
+      float m = -INFINITY;
+      for (int d = -pad; d <= pad; ++d) {
+        if (r + d < 0 || r + d >= rows) continue;
+        const float v = rmax[(i + d * W) * ct + c];
+        if (v > m || isnan(v)) m = v;
+      }
+      cur[i * ct + c] = m;
+      if (live && r >= band_lo && r < band_hi) orow[(size_t)i * OC + (size_t)level * C] = from_f<T>(m);
+      r += dr;
+      w += dw;
+      if (w >= W) w -= W, ++r;
+    }
+    __syncthreads();
   }
 }
 
 template <typename T>
-int launch_sppf(const void* x, void* out, int B, int H, int W, int C, int ct, int window, int reps,
+int launch_sppf(const void* x, void* out, int B, int H, int W, int C, int ct, int rb, int window, int reps,
                 cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)H * W * ct * sizeof(float);
-  dim3 grid((C + ct - 1) / ct, B);
-  sppf_kernel<T><<<grid, 256, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(out), H, W,
-                                              C, ct, window, reps);
+  const int rows = min(H, rb + 2 * reps * (window / 2));
+  const size_t smem = 2 * (size_t)rows * W * ct * sizeof(float);
+  dim3 grid((C + ct - 1) / ct, (H + rb - 1) / rb, B);
+  sppf_kernel<T><<<grid, dim3(ct, SPPF_THREADS / ct), smem, stream>>>(static_cast<const T*>(x),
+                                                                       static_cast<T*>(out), H, W, C, rb, window,
+                                                                       reps);
   return (int)cudaGetLastError();
 }
 
@@ -533,16 +578,17 @@ int fused_conv_block_bf16(const void* x, const void* w, const float* bias, const
                                    stream);
 }
 
-// (B,H,W,C) -> (B,H,W,(reps+1)*C); ct channels per block, 2*H*W*ct*4 bytes of
+// (B,H,W,C) -> (B,H,W,(reps+1)*C); blocks of ct channels (a power of two
+// <= 32) x rb output rows, 2*min(H, rb + 2*reps*(window/2))*W*ct*4 bytes of
 // shared memory (the wrapper keeps it within the 48 KB default).
-int sppf_pyramid_f32(const void* x, void* out, int B, int H, int W, int C, int ct, int window,
+int sppf_pyramid_f32(const void* x, void* out, int B, int H, int W, int C, int ct, int rb, int window,
                      int reps, void* stream) {
-  return launch_sppf<float>(x, out, B, H, W, C, ct, window, reps, static_cast<cudaStream_t>(stream));
+  return launch_sppf<float>(x, out, B, H, W, C, ct, rb, window, reps, static_cast<cudaStream_t>(stream));
 }
 
-int sppf_pyramid_bf16(const void* x, void* out, int B, int H, int W, int C, int ct, int window,
+int sppf_pyramid_bf16(const void* x, void* out, int B, int H, int W, int C, int ct, int rb, int window,
                       int reps, void* stream) {
-  return launch_sppf<__nv_bfloat16>(x, out, B, H, W, C, ct, window, reps,
+  return launch_sppf<__nv_bfloat16>(x, out, B, H, W, C, ct, rb, window, reps,
                                     static_cast<cudaStream_t>(stream));
 }
 

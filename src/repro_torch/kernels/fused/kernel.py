@@ -35,8 +35,9 @@ NORMS = {"none": 0, "batch": 1, "instance": 2, "group": 3}
 ACTS = {"none": 0, "relu": 1, "lrelu": 2, "silu": 3, "tanh": 4}
 
 _ENTRY = {torch.float32: "fused_conv_block_f32", torch.bfloat16: "fused_conv_block_bf16"}
-# blocks wanted in flight: two per SM of an H100
-_TARGET_BLOCKS = 2 * 132
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+# blocks wanted in flight: two per SM
+_TARGET_BLOCKS = 2 * _SMS
 _SPPF_SMEM = 48 * 1024
 # taps the conv GEMM's block vote covers (one bit each of an unsigned)
 VOTE_TAPS = 32
@@ -56,7 +57,7 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).argtypes = [p] * 9 + [i] * 12 + [f] + [i] * 6 + [p]
         getattr(lib, name).restype = i
     for name in ("sppf_pyramid_f32", "sppf_pyramid_bf16"):
-        getattr(lib, name).argtypes = [p, p] + [i] * 7 + [p]
+        getattr(lib, name).argtypes = [p, p] + [i] * 8 + [p]
         getattr(lib, name).restype = i
     lib.fused_error_string.argtypes = [i]
     lib.fused_error_string.restype = ctypes.c_char_p
@@ -199,13 +200,36 @@ def conv_block_cuda(x, w, b, gamma, beta, *, stride, padding, norm, groups, act,
 _SPPF_ENTRY = {torch.float32: "sppf_pyramid_f32", torch.bfloat16: "sppf_pyramid_bf16"}
 
 
-def sppf_channel_tile(H: int, W: int, C: int) -> int:
-    """Channels per block: the widest of 32/16/.../1 whose two H x W tiles
-    fit the default 48 KB of shared memory."""
+@functools.cache
+def sppf_geometry(B: int, H: int, W: int, C: int, window: int = 5, reps: int = 3) -> tuple[int, int]:
+    """``(ct, rb)``: channels and output rows per block of the SPPF kernel.
+    A block holds its rb rows and a halo of ``reps * (window // 2)`` rows on
+    each side (clipped to the map) in two fp32 planes of shared memory.
+    Lanes run along C, so a wider tile coalesces better: the widest ct of
+    32, 16, ..., 1 (at most C), then the tallest rb, whose grid reaches one
+    block per SM and whose planes fit the default 48 KB; where no tile
+    reaches that many blocks, the fitting tile that makes the most. Cached:
+    it runs on every launch."""
+    halo = reps * (window // 2)
+    fitting = []
     for ct in (32, 16, 8, 4, 2, 1):
-        if 2 * H * W * ct * 4 <= _SPPF_SMEM:
-            return min(ct, C)
-    raise ValueError(f"an {H}x{W} SPPF tile does not fit {_SPPF_SMEM} bytes of shared memory")
+        if ct > C and ct > 1:
+            continue
+        for rb in range(H, 0, -1):
+            if sppf_smem_bytes(H, W, ct, rb, halo) > _SPPF_SMEM:
+                continue
+            blocks = B * -(-C // ct) * -(-H // rb)
+            if blocks >= _SMS:
+                return ct, rb
+            fitting.append((blocks, ct, rb))
+    if not fitting:
+        raise ValueError(f"an {H}x{W} SPPF row with its halo does not fit {_SPPF_SMEM} bytes of shared memory")
+    return max(fitting)[1:]
+
+
+def sppf_smem_bytes(H: int, W: int, ct: int, rb: int, halo: int) -> int:
+    """Shared memory of an SPPF block: two fp32 planes of its rows and halo."""
+    return 2 * min(H, rb + 2 * halo) * W * ct * 4
 
 
 def sppf_pyramid_cuda(x, *, window, reps):
@@ -214,12 +238,12 @@ def sppf_pyramid_cuda(x, *, window, reps):
         raise TypeError(f"sppf_pyramid takes float32 or bfloat16, got {x.dtype}")
     require(x, "x", x.dtype)
     B, H, W, C = x.shape
-    ct = sppf_channel_tile(H, W, C)
+    ct, rb = sppf_geometry(B, H, W, C, window, reps)
     out = torch.empty((B, H, W, (reps + 1) * C), dtype=x.dtype, device=x.device)
     lib = library()
     with torch.cuda.device(x.device):
         err = getattr(lib, _SPPF_ENTRY[x.dtype])(
-            x.data_ptr(), out.data_ptr(), B, H, W, C, ct, window, reps,
+            x.data_ptr(), out.data_ptr(), B, H, W, C, ct, rb, window, reps,
             torch.cuda.current_stream().cuda_stream,
         )
     _check(lib, err, "sppf_pyramid")

@@ -149,17 +149,20 @@ def test_smoke_reads_the_bf16_instantiations_from_the_ptxas_log():
     assert smoke.flash_tc_report("", lambda D: 0) == {}
 
 
-def test_bf16_inputs_are_copied_only_off_a_16_byte_boundary():
-    """The bf16 kernel copies 16-byte chunks: a view whose data starts off
-    a 16-byte boundary is copied (same values), any other tensor passes
-    through as it is."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_bf16_inputs_are_copied_only_off_a_16_byte_boundary(dtype):
+    """Both kernels copy 16-byte chunks (the f32 one since its tensor-core
+    redesign): a view whose data starts off a 16-byte boundary is copied
+    (same values), any other tensor passes through as it is."""
     from repro_torch.kernels.attention.kernel import aligned16
 
-    base = torch.arange(2 * 8 * 64, dtype=torch.float32).bfloat16()
+    base = torch.arange(2 * 8 * 64, dtype=torch.float32).to(dtype)
+    es = base.element_size()
     whole = base.view(2, 8, 1, 64)
     assert aligned16(whole) is whole
-    off = base[1:].narrow(0, 0, 8 * 64).view(1, 8, 1, 64)  # 2 bytes past the start
-    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    off = base[1:].narrow(0, 0, 8 * 64).view(1, 8, 1, 64)  # one element past the start
+    assert off.is_contiguous() and off.data_ptr() % 16 == es
     moved = aligned16(off)
     assert moved is not off and moved.data_ptr() % 16 == 0 and torch.equal(moved, off)
-    assert aligned16(base[8:].view(1, -1)).data_ptr() == base.data_ptr() + 16  # 16 bytes in: kept
+    kept = 16 // es  # 16 bytes in: kept
+    assert aligned16(base[kept:].view(1, -1)).data_ptr() == base.data_ptr() + 16

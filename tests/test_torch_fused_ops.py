@@ -166,9 +166,78 @@ def test_stats_chunks_cover_rows(rows, cout, sets):
 
 
 def test_sppf_channel_tile_fits_shared_memory():
-    assert kernel.sppf_channel_tile(8, 8, 128) == 32
-    assert kernel.sppf_channel_tile(8, 8, 4) == 4
-    assert 2 * 20 * 20 * kernel.sppf_channel_tile(20, 20, 256) * 4 <= 48 * 1024
+    """The SPPF kernel's tiles: at YOLOv8's served shape the grid reaches
+    one block per SM of an H100 (132), at the 640-pixel input's (1, 20,
+    20, 256) the two planes of a block's rows and halo fit the default 48
+    KB, and a tile never has more lanes than channels."""
+    def blocks(B, H, W, C):
+        ct, rb = kernel.sppf_geometry(B, H, W, C)
+        return B * -(-C // ct) * -(-H // rb)
+
+    assert kernel.sppf_geometry(1, 8, 8, 128) == (4, 1) and blocks(1, 8, 8, 128) >= 132
+    ct, rb = kernel.sppf_geometry(1, 20, 20, 256)
+    assert kernel.sppf_smem_bytes(20, 20, ct, rb, halo=6) <= 48 * 1024 and blocks(1, 20, 20, 256) >= 132
+    assert kernel.sppf_geometry(1, 8, 8, 4)[0] <= 4
+    with pytest.raises(ValueError, match="does not fit"):
+        kernel.sppf_geometry(1, 8, 4096, 8)
+
+
+def emulate_sppf(x, window, reps):
+    """The SPPF kernel in plain torch: per band of ``sppf_geometry``'s rb
+    output rows, the region of the band and its halo (clipped to the map),
+    each level a window-wide row max (taps left to right) then a
+    window-tall column max (taps top to bottom) over the region alone, in
+    the kernel's compare rule (take v when v > m or v is NaN). Channels are
+    independent, so the channel tile does not enter."""
+    B, H, W, C = x.shape
+    _, rb = kernel.sppf_geometry(B, H, W, C, window, reps)
+    pad = window // 2
+    neg = torch.tensor(-float("inf"))
+
+    def pool(cur, dim):
+        n = cur.shape[dim]
+        m = torch.full_like(cur, -float("inf"))
+        for d in range(-pad, pad + 1):
+            idx = torch.arange(n) + d
+            ok = ((idx >= 0) & (idx < n)).view([-1 if i == dim else 1 for i in range(cur.dim())])
+            v = torch.where(ok, cur.index_select(dim, idx.clamp(0, n - 1)), neg)
+            m = torch.where((v > m) | torch.isnan(v), v, m)
+        return m
+
+    out = torch.empty(B, H, W, (reps + 1) * C, dtype=x.dtype)
+    out[..., :C] = x
+    for h0 in range(0, H, rb):
+        h1 = min(H, h0 + rb)
+        lo, hi = max(0, h0 - reps * pad), min(H, h1 + reps * pad)
+        cur = x[:, lo:hi].float()
+        for level in range(1, reps + 1):
+            cur = pool(pool(cur, 2), 1)
+            out[:, h0:h1, :, level * C : (level + 1) * C] = cur[:, h0 - lo : h1 - lo].to(x.dtype)
+    return out
+
+
+@pytest.mark.parametrize("shape,window,reps", SPPF_CASES + [((1, 8, 8, 128), 5, 3), ((1, 20, 20, 256), 5, 3)])
+@pytest.mark.parametrize("dt", DTYPES, ids=["f32", "bf16"])
+def test_sppf_kernel_order_bit_exact_vs_jax_ref(shape, window, reps, dt):
+    """The kernel's separable cascade, bands and halo emulated, against
+    ``repro``'s ``sppf_pyramid_ref`` with NaN and -inf planted in the
+    input (a -inf row too): equal bit for bit, NaNs where the reference has
+    them."""
+    _, tdt, jdt, _ = dt
+    rs = np.random.RandomState(1)
+    x = rs.randn(*shape).astype(np.float32)
+    flat = x.reshape(-1)
+    picks = rs.permutation(flat.size)[: max(2, flat.size // 50)]
+    flat[picks[: len(picks) // 2]] = np.nan
+    flat[picks[len(picks) // 2 :]] = -np.inf
+    x[:, shape[1] // 2] = -np.inf
+    xt, xj = _both(x, tdt, jdt)
+    got = _f32(emulate_sppf(xt, window, reps))
+    want = _f32(jref.sppf_pyramid_ref(xj, window=window, reps=reps))
+    assert got.shape == want.shape and np.isnan(want).any() and np.isneginf(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(got[ok].view(np.int32), want[ok].view(np.int32))
 
 
 def _smoke():
@@ -225,6 +294,22 @@ def test_smoke_bound_counts_only_real_taps(H, W, k, stride, pad, transposed):
     want_ops = 2 * cin * cout * taps + out * (7 + 1)
     assert bytes_ms == pytest.approx(want_bytes / smoke.HBM_BYTES_PER_S * 1e3, rel=1e-12)
     assert ops_ms == pytest.approx(want_ops / smoke.FP32_ACCURATE_FLOPS * 1e3, rel=1e-12)
+
+
+@pytest.mark.parametrize("shape,window,reps", SPPF_CASES + [((1, 8, 8, 128), 5, 3)])
+def test_sppf_bound_counts_a_separable_pool(shape, window, reps):
+    """``chip_smoke.bound`` for SPPF: the input read and the (reps + 1)-wide
+    concat written once, and per level the maxes of a row pass and a
+    column pass over the taps inside the map (one max per tap beyond the
+    first), counted here pixel by pixel."""
+    smoke = _smoke()
+    B, H, W, C = shape
+    pad = window // 2
+    row = sum(min(W, w + pad + 1) - max(0, w - pad) - 1 for h in range(H) for w in range(W))
+    col = sum(min(H, h + pad + 1) - max(0, h - pad) - 1 for h in range(H) for w in range(W))
+    bytes_ms, ops_ms = smoke.bound("sppf_pyramid", dict(x=torch.zeros(shape), window=window, reps=reps))
+    assert bytes_ms == pytest.approx(4 * B * H * W * C * (reps + 2) / smoke.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    assert ops_ms == pytest.approx(reps * B * C * (row + col) / smoke.FP32_OPS_SIMPLE * 1e3, rel=1e-12)
 
 
 @pytest.mark.cuda

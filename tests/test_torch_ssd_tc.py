@@ -56,15 +56,17 @@ def rz32(v):
     return torch.where(r.double().abs() > v.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
 
 
-def mma(a, b, mode, asplit=False, bsplit=False, terms=None):
+def mma(a, b, mode, asplit=False, bsplit=False, terms=None, chain=None):
     """``warp_gemm``: a (..., M, K) @ b (..., K, N) in the kernels' MMA
-    arithmetic. ``terms`` (f32 only) 3, the kernel, or 1: one TF32 product."""
+    arithmetic. ``terms`` (f32 only) 3, the kernel, or 1: one TF32 product.
+    ``chain`` (f32 only): K per fresh accumulator chain, ``KCHAIN`` unless
+    given."""
     K = a.shape[-1]
     if mode == "f32":
         ah, bh = tf32_rna(a), tf32_rna(b)
         al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
         pairs = [(al, bh), (ah, bl), (ah, bh)][3 - (terms or 3):]
-        step, chain = 8, KCHAIN
+        step, chain = 8, chain or KCHAIN
     else:
         ah, bh = bf16_rn(a), bf16_rn(b)
         pairs = ([(bf16_rn(a - ah), bh)] if asplit else []) + ([(ah, bf16_rn(b - bh))] if bsplit else []) + [(ah, bh)]
