@@ -24,17 +24,32 @@ toolkit, this
    ``pallas_fused`` path at full width (img 256, base 64) and checks and
    times each distinct call the same way;
 4. serves 4 frames on each of 2 Pix2Pix and 1 YOLOv8 streams through
-   ``repro_torch.serve.build_server(impl="pallas")`` with the launch
-   counters set to 0 just before, requires exactly 316 conv_block, 64
-   deconv_block and 4 sppf_pyramid launches, and holds every output against
-   the same model's ``run_all`` on the plain (``xla``) ops on the card
-   (atol 5e-3, rtol 1e-2); then splits each conv_block and deconv_block
+   ``repro_torch.serve.build_server(impl="pallas")``, each planned segment
+   a CUDA graph captured at the warm-up frame and replayed, with the launch
+   counters set to 0 just before: requires exactly 316 conv_block, 64
+   deconv_block and 4 sppf_pyramid launches, every one a replay (each
+   replay counts the launches its graph captured,
+   ``repro_torch.kernels.graph_launches``; the wrappers' own counters stay
+   0), and holds every output against the same model's ``run_all`` on the
+   plain (``xla``) ops on the card (atol 5e-3, rtol 1e-2); serves 16
+   frames per stream on fresh servers as graphs, eager, eager, graphs
+   (``served_ab``: frames/s, p50/p99, host-issue share, peak memory; 4
+   times the launch counts, outside graphs or replayed); each served run
+   also prints the Python collections and the allocator's new device
+   segments inside it (``served_trace.GcClock``, ``device_segments``);
+   then splits each
+   conv_block and deconv_block
    call's device time between its passes (GEMM, split-K sum, statistics,
    normalise: ``device_split``), summed over the served run; then runs one
    frame each through full-width Pix2Pix and YOLOv8n with bf16 activations
    on the fused kernels, the counters set to 0 just before each (exactly 71
    conv_block, 8 deconv_block and 1 sppf_pyramid launches), against the
-   plain ops (``bf16_forward_phase``);
+   plain ops (``bf16_forward_phase``); then drives the launcher,
+   ``repro_torch.launch.serve.main``, in this process (``launcher_phase``:
+   graphs against ``--no-jit-segments`` bit-exact at 316/64/4 launches,
+   ``--cost measured``, ``--cost online --replan`` with one forced swap,
+   no drop and each flight in flight at the swap finishing its admitted
+   route, open-loop traffic, ``--mode lm``);
 5. holds the ``deconv2d`` kernel (``kernels/deconv/csrc``) against its plain
    version at the generator's 8 up-sampling shape classes, a B=8 case and a
    bf16 case (max abs error <= 1e-4 in f32, <= 5e-2 in bf16, reported by
@@ -84,8 +99,9 @@ toolkit, this
    and 16 new tokens (``launch/serve.py --mode lm``'s defaults), tokens/s
    on the host clock.
 
-It prints a ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
-line; any failure raises and exits non-zero. Without a CUDA device, or
+It prints each phase's time (``[phase time]``), a ``kernels`` JSON line
+and, last, the ``{"ok": true, ...}`` line; any failure raises and exits
+non-zero. Without a CUDA device, or
 without the repo's ``src/repro_torch`` beside it, it exits 2 and prints no
 result. ``--json PATH`` also writes every measured row to PATH.
 """
@@ -99,6 +115,7 @@ import inspect
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1294,6 +1311,299 @@ def bf16_forward_phase(torch, ops, dev, img=IMG, base=BASE):
     return launches, checks, calls
 
 
+AB_FRAMES = 16  # frames per stream of each served_ab run: the main path's run is too short to time
+
+
+def served_ab(torch, build_server, ops, dev, smi, want, clock):
+    """The main path's serving on fresh servers as CUDA graphs, eager
+    (``jit_segments=False``), eager, then graphs again: after one warm-up
+    frame per stream (captures, allocator), ``AB_FRAMES`` frames per stream
+    with the counters set to 0 and the peak memory reset just before. Each
+    eager run must launch ``AB_FRAMES / 4`` times ``want`` outside any
+    graph, each graph run replay as many. Returns a row per run."""
+    from repro_torch import kernels as kernels_pkg
+    from served_trace import device_segments
+
+    want = {n: v * AB_FRAMES // 4 for n, v in want.items()}
+    rows = []
+    for jit in (True, False, False, True):
+        bundle = build_server(img=IMG, base=BASE, n_pix=2, n_yolo=1, impl="pallas", device=dev, jit_segments=jit)
+        server = bundle.server
+        for s in bundle.streams:
+            server.submit(s.model_index, bundle.frame_for(s.name, 99))
+        server.drain()
+        torch.cuda.synchronize()
+        server.reset_metrics()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        kernels_pkg.reset_graph_launches()
+        frames_in = {s.name: [bundle.frame_for(s.name, t) for t in range(AB_FRAMES)] for s in bundle.streams}
+        torch.cuda.synchronize()
+        seg0, _ = device_segments(torch)
+        clock.start()
+        for t in range(AB_FRAMES):
+            for s in bundle.streams:
+                server.submit(s.model_index, frames_in[s.name][t])
+        server.pump()
+        server.drain()
+        torch.cuda.synchronize()
+        gcs, new_segments = clock.stop(), device_segments(torch)[0] - seg0
+        rep = server.report()
+        eager = dict(ops.launches)
+        replayed = {n: kernels_pkg.graph_launches[n] for n in REPLACES}
+        if (replayed, eager) != ((want, dict.fromkeys(REPLACES, 0)) if jit else (dict.fromkeys(REPLACES, 0), want)):
+            raise AssertionError(f"jit_segments={jit}: replayed {replayed}, outside a graph {eager}, want {want}")
+        row = {"jit_segments": jit, "frames_per_s": rep["aggregate_fps"], "p50_ms": rep["latency_p50_ms"],
+               "p99_ms": rep["latency_p99_ms"], "issue_share": _engine_shares(rep),
+               "blocked_share": 1 - rep["overlap"]["overlap_efficiency"],
+               "peak_mem_bytes": torch.cuda.max_memory_allocated() - mem0, "gc": gcs,
+               "new_device_segments": new_segments}
+        rows.append(row)
+        print(f"served {rep['frames']} frames, {'graphs' if jit else 'eager '}: {rep['aggregate_fps']:.2f} frames/s, p50 "
+              f"{rep['latency_p50_ms']:.2f} ms, p99 {rep['latency_p99_ms']:.2f} ms, host-issue share "
+              f"{json.dumps(row['issue_share'])}, blocked {100 * row['blocked_share']:.2f}% of the tick wall, peak "
+              f"memory {row['peak_mem_bytes'] / 2**20:.1f} MiB over the run; {len(gcs)} Python collections "
+              f"({sum(g[1] for g in gcs):.2f} ms), {new_segments} new device segments | {smi}")
+        del bundle, server
+    return rows
+
+
+def _launch(torch, launch_main, argv):
+    """``repro_torch.launch.serve.main(argv)`` in this process, its output
+    kept but for its ``[serve]`` lines; returns ``(result, report,
+    seconds)``, the report parsed from the launcher's JSON."""
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = launch_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    report = json.loads(out[out.index("{\n"):]) if "{\n" in out else None
+    for ln in out.splitlines():
+        if ln.startswith("[serve]"):
+            print("  " + ln[:200])
+    return result, report, seconds
+
+
+def _leaves_of(out):
+    return [out[k] for k in sorted(out)] if isinstance(out, dict) else [out]
+
+
+def _engine_shares(report):
+    return {e: round(w["issue_frac"], 4) for e, w in (report.get("engines") or {}).items()}
+
+
+def launcher_phase(torch, smi, dev, ops, want):
+    """The launcher (``repro_torch.launch.serve.main``) in this process:
+
+    1. ``--mode streams --impl pallas --img 256 --base 64 --streams 2
+       --yolo-streams 1 --frames 4`` with the segments as CUDA graphs and
+       with ``--no-jit-segments``: the per-frame outputs bit-exact between
+       the two, the launch counters set to 0 just before each run: the
+       eager run launches ``want`` (316/64/4) outside any graph, the graph
+       run replays ``want`` (each replay counts the launches its graph
+       captured, ``kernels.graph_launches``) and launches outside a graph
+       only each graph's warm-up (the launches its capture recorded);
+       frames/s, p50/p99, each engine's host-issue share and the peak of
+       ``max_memory_allocated`` over the run, for both;
+    2. ``--cost measured --cost-cache``, then ``--cost online --replan
+       --calibration-cache`` with an injected stall (``segment_delay_fn``)
+       on the engine carrying the most planned work once the re-planner
+       has calibrated: exactly one swap, every frame completed in
+       per-stream order, every flight admitted after the swap on the new
+       plan, each flight in flight at the swap ran the rest of its
+       admitted route segment by segment and its frames completed, the
+       calibration file written;
+    3. ``--traffic poisson --rate 30 --duration 1 --admission``;
+    4. ``--mode lm --arch hymba_1_5b --tokens 4 --batch 2 --prompt-len 8``.
+
+    Returns the phase's rows."""
+    import gc
+    import tempfile
+
+    import repro_torch.serve as serve_pkg
+    from repro_torch import kernels as kernels_pkg
+    from repro_torch.launch import serve as launch_serve
+
+    rows = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_launch_"))
+    base = ["--mode", "streams", "--impl", "pallas", "--img", str(IMG), "--base", str(BASE), "--streams", "2",
+            "--yolo-streams", "1", "--frames", "4"]
+    outs = {}
+    for key, extra in (("graphs", []), ("eager", ["--no-jit-segments"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        kernels_pkg.reset_graph_launches()
+        bundle, rep, seconds = _launch(torch, launch_serve.main, base + extra)
+        eager = dict(ops.launches)
+        replayed = {n: kernels_pkg.graph_launches[n] for n in REPLACES}
+        peak = torch.cuda.max_memory_allocated() - mem0
+        graphs = [g for m in bundle.models for _, g in m.captured_graphs()]
+        warm = {n: sum(g.launches.get(n, 0) for g in graphs) for n in REPLACES}
+        if key == "graphs":
+            if not bundle.server.executor.captures_graphs or replayed != want or eager != warm:
+                raise AssertionError(f"graph run: replayed {replayed} (want {want}), outside a graph {eager} "
+                                     f"(want the {len(graphs)} graphs' warm-ups {warm})")
+        elif eager != want or any(replayed.values()) or graphs:
+            raise AssertionError(f"eager run: launched {eager} (want {want}), replayed {replayed}")
+        outs[key] = {name: [[t.clone() for t in _leaves_of(o)] for o in o_list]
+                     for name, o_list in bundle.server.executor.outputs.items()}
+        rows[key] = {"frames_per_s": rep["aggregate_fps"], "p50_ms": rep["latency_p50_ms"],
+                     "p99_ms": rep["latency_p99_ms"], "frames": rep["frames"], "issue_share": _engine_shares(rep),
+                     "overlap_efficiency": rep["overlap"]["overlap_efficiency"], "peak_mem_bytes": peak,
+                     "launches_outside_graphs": eager, "replayed_launches": replayed, "graphs": len(graphs),
+                     "seconds": seconds}
+        print(f"launcher {key}: {rep['frames']} frames, {rep['aggregate_fps']:.2f} frames/s, p50 "
+              f"{rep['latency_p50_ms']:.2f} ms, p99 {rep['latency_p99_ms']:.2f} ms, host-issue share "
+              f"{json.dumps(rows[key]['issue_share'])}, peak memory {peak / 2**20:.1f} MiB over the run "
+              f"({len(graphs)} graphs), launches {json.dumps(replayed if key == 'graphs' else eager)}, "
+              f"{seconds:.1f} s | {smi}")
+        del bundle, graphs
+    worst = 0
+    for name in outs["graphs"]:
+        a, b = outs["graphs"][name], outs["eager"][name]
+        if len(a) != 4 or len(b) != 4:
+            raise AssertionError(f"{name}: {len(a)} / {len(b)} outputs, want 4")
+        for fa, fb in zip(a, b):
+            for ta, tb in zip(fa, fb):
+                if ta.shape != tb.shape or not bool(torch.isfinite(ta).all()):
+                    raise AssertionError(f"{name}: shape {tuple(ta.shape)} vs {tuple(tb.shape)} or non-finite")
+                if not torch.equal(ta, tb):
+                    worst = max(worst, (ta - tb).abs().max().item())
+    if worst:
+        raise AssertionError(f"graph replay differs from the eager ops by up to {worst:.3e}: want bit-exact")
+    print(f"launcher: graph-replayed outputs bit-exact against eager ({len(outs['graphs'])} streams x 4 frames)")
+    del outs
+
+    cache = tmp / "timings.json"
+    bundle, rep, seconds = _launch(torch, launch_serve.main, base + ["--cost", "measured", "--cost-cache", str(cache)])
+    entries = len(json.loads(cache.read_text())["entries"])
+    if bundle.plan.cost_provider != "measured" or rep["frames"] != 12 or not entries:
+        raise AssertionError(f"--cost measured: plan {bundle.plan.cost_provider}, {rep['frames']} frames, "
+                             f"{entries} cache entries")
+    rows["measured"] = {"cuts": [list(c) for c in bundle.plan.cuts], "cache_entries": entries, "seconds": seconds,
+                        "frames_per_s": rep["aggregate_fps"]}
+    print(f"launcher --cost measured: cuts {bundle.plan.cuts}, {entries} timings cached, "
+          f"{rep['aggregate_fps']:.2f} frames/s, {seconds:.1f} s")
+    del bundle
+
+    calib = tmp / "calib.json"
+    stall = {"on": False}
+    swaps_at = []
+    ran = []  # (flight, segment) of every segment issued after the swap
+
+    def with_stall(**kw):
+        b = real_build(**kw)
+        ex, rp = b.server.executor, b.replanner
+        load = {}
+        for segs in b.plan.segments:
+            for sg in segs:
+                load[sg.engine] = load.get(sg.engine, 0.0) + sg.expected_cost
+        slow = max(load, key=load.get)
+        slow_name = b.plan.engine_names[slow]
+
+        def delay(seg):
+            if not stall["on"]:
+                if not rp.calibrated:
+                    return 0.0
+                stall.update(on=True, tick=ex.tick_count, scale=rp.online.scale(slow_name), engine=slow_name)
+            if seg.engine != slow:
+                return 0.0
+            # four times the calibrated wall of the span: a fixed slowdown
+            return 4.0 * stall["scale"] * rp._expected_base(seg.model_index, seg.engine, seg.lo, seg.hi, seg.impl)
+
+        real_swap, real_run = ex.swap_plan, ex._run_segment
+
+        def swap(ir):
+            # each flight in flight, with the stage it had reached and its admitted route
+            swaps_at.append((ex.tick_count, [(f, f.stage, f.route) for f in ex.in_flight], ex.plan))
+            return real_swap(ir)
+
+        def run_segment(flight):
+            if swaps_at:
+                ran.append((flight, flight.route[flight.stage]))
+            return real_run(flight)
+
+        ex.segment_delay_fn, ex.swap_plan, ex._run_segment = delay, swap, run_segment
+        return b
+
+    argv = base[:-1] + ["16", "--cost", "online", "--replan", "--profile-every", "1", "--replan-cooldown", "1000",
+                        "--calibration-cache", str(calib)]
+    with patched(serve_pkg, "build_server", with_stall) as real_build:
+        bundle, rep, seconds = _launch(torch, launch_serve.main, argv)
+    ex, summary = bundle.server.executor, rep["replan"]
+    submitted = 16 * len(bundle.streams)
+    if summary["swaps"] != 1 or len(swaps_at) != 1 or len(ex.completions) != submitted or rep["frames"] != submitted:
+        raise AssertionError(f"replan run: {summary['swaps']} swaps, {len(ex.completions)} of {submitted} "
+                             f"frames completed; stall {stall}; events {summary['events']}")
+    for s in bundle.streams:
+        fids = [c.frame_id for c in ex.completions if c.stream == s.name]
+        if fids != sorted(fids) or len(fids) != 16:
+            raise AssertionError(f"{s.name}: completions out of order or missing: {fids}")
+    tick, flights, old = swaps_at[0]
+    done = {(c.stream, c.frame_id) for c in ex.completions}
+    names = [s.name for s in bundle.streams]
+    # every flight in flight at the swap ran the rest of its admitted route,
+    # segment by segment, and each of its frames completed
+    for f, stage, route in flights:
+        rest = [(sg.lo, sg.hi, sg.engine) for sg in route[stage:]]
+        got = [(sg.lo, sg.hi, sg.engine) for g, sg in ran if g is f]
+        frames = [(names[m.stream_index], m.frame_id) for m in f.members]
+        if f.revision != old.revision or got != rest or f.stage != len(route) or not set(frames) <= done:
+            raise AssertionError(f"swap at tick {tick}: flight of {frames} admitted under revision {f.revision} "
+                                 f"ran {got} after it, want the rest of its route {rest}")
+    # every flight admitted after the swap ran the new plan's route
+    stale = [(f.revision, sg.lo, sg.hi) for f, sg in ran
+             if all(f is not g for g, _, _ in flights) and f.revision != ex.plan.revision]
+    if stale:
+        raise AssertionError(f"swap at tick {tick}: segments of flights admitted on the old plan after it {stale}")
+    in_flight = len(flights)
+    finished_old = [sg for f, sg in ran if any(f is g for g, _, _ in flights)]
+    if not calib.exists() or not json.loads(calib.read_text())["engines"]:
+        raise AssertionError("--calibration-cache was not written")
+    ev = summary["events"][0]
+    rows["replan"] = {"swap_tick": tick, "in_flight_at_swap": in_flight, "old_route_segments_after": len(finished_old),
+                      "old_cuts": ev["old_cuts"], "new_cuts": ev["new_cuts"], "drift": ev["drift"],
+                      "stall": {k: v for k, v in stall.items() if k != "on"}, "swap_stall": summary["swap_stall"],
+                      "frames": rep["frames"], "frames_per_s": rep["aggregate_fps"], "seconds": seconds}
+    print(f"launcher --cost online --replan: 1 swap at tick {tick} (stall on {stall.get('engine')} from tick "
+          f"{stall.get('tick')}), cuts {ev['old_cuts']} -> {ev['new_cuts']}, drift {ev['drift']}, "
+          f"{in_flight} flights in flight at the swap finished on their admitted route "
+          f"({len(finished_old)} old-route segments after it), {rep['frames']} of {submitted} frames, 0 dropped, "
+          f"swap stall {summary['swap_stall']['hot_path_stall_ms']:.1f} ms, {seconds:.1f} s | {smi}")
+    del bundle
+
+    bundle, rep, seconds = _launch(torch, launch_serve.main, base[:-2] + [
+        "--traffic", "poisson", "--rate", "30", "--duration", "1", "--admission"])
+    adm = rep["admission"]
+    if not rep["frames"] or not adm["offered"]:
+        raise AssertionError(f"open loop served {rep['frames']} frames of {adm['offered']} offered")
+    rows["open_loop"] = {"frames": rep["frames"], "admission": adm, "goodput_fps": rep.get("goodput_fps"),
+                         "p99_ms": rep["latency_p99_ms"], "seconds": seconds}
+    print(f"launcher open loop (poisson 30 Hz/stream, 1 s, admission): {rep['frames']} frames served of "
+          f"{adm['offered']} offered ({adm['dropped']} dropped), goodput {rep.get('goodput_fps', 0):.2f} frames/s, "
+          f"p99 {rep['latency_p99_ms']:.2f} ms, {seconds:.1f} s | {smi}")
+    del bundle
+
+    gen, _, seconds = _launch(torch, launch_serve.main, ["--mode", "lm", "--arch", "hymba_1_5b", "--tokens", "4",
+                                                          "--batch", "2", "--prompt-len", "8"])
+    if tuple(gen.shape) != (2, 4) or gen.device.type != "cuda":
+        raise AssertionError(f"--mode lm generated {tuple(gen.shape)} on {gen.device}")
+    rows["lm"] = {"tokens": gen.tolist(), "seconds": seconds}
+    print(f"launcher --mode lm (hymba_1_5b smoke): generated {tuple(gen.shape)} on the card, {seconds:.1f} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--json", help="also write every measured row to this file")
@@ -1318,12 +1628,21 @@ def main() -> int:
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch import kernels as kernels_pkg
     from repro_torch.serve import build_server
+    from served_trace import GcClock, device_segments
 
+    clock = GcClock()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[phase time] {what}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1371,6 +1690,7 @@ def main() -> int:
               f"spill loads {r['spill_loads']} B, shared memory {r['dynamic_smem']} B dynamic + "
               f"{r['static_smem']} B static")
 
+    lap("build")
     bench = Bench(ops, ref, deconv_ops, deconv_ref)
     rows = []
     print("-- kernels vs plain versions, main-path shape classes (ms on the card, CUDA events)")
@@ -1387,6 +1707,7 @@ def main() -> int:
         if name == "deconv_block":
             print(f"{'':13s} {achieved(r)}")
 
+    lap("shape classes")
     print(f"-- every kernel call of one Pix2Pix + one YOLOv8 frame (img {IMG}, base {BASE})")
     calls = capture_main_path_calls(torch, ops, build_server, dev)
     per_frame = {
@@ -1427,15 +1748,19 @@ def main() -> int:
         print(f"{'':13s} {n}: {blk['ops_ms'] * FP32_ACCURATE_FLOPS / blk['ms'] / 1e12:.2f} TFLOP/s, "
               f"{100 * blk['bound_ms'] / blk['ms']:.2f}% of the bound | {smi}")
 
-    print(f"-- main path: build_server(img={IMG}, base={BASE}, n_pix=2, n_yolo=1, impl='pallas')")
+    lap("kernel calls of one frame pair")
+    print(f"-- main path: build_server(img={IMG}, base={BASE}, n_pix=2, n_yolo=1, impl='pallas'), "
+          "each segment a replayed CUDA graph")
     bundle = build_server(img=IMG, base=BASE, n_pix=2, n_yolo=1, impl="pallas", device=dev)
+    if not bundle.server.executor.captures_graphs:
+        raise AssertionError("the served run does not capture its segments in CUDA graphs")
     impls = {i for b in bundle.plan.impl_bindings() for i in b}
     routes = [[(s.engine, s.lo, s.hi) for s in segs] for segs in bundle.plan.segments]
     print(f"plan: impls {sorted(impls)} routes {routes} cycle {bundle.plan.expected_cycle * 1e3:.3f} ms (analytic)")
     if impls != {"pallas_fused"}:
         raise AssertionError(f"plan binds {impls}, want only pallas_fused")
     server = bundle.server
-    for s in bundle.streams:  # warm-up frame per stream (allocator, first launches)
+    for s in bundle.streams:  # warm-up frame per stream (allocator, first launches, graph captures)
         server.submit(s.model_index, bundle.frame_for(s.name, 99))
     server.drain()
     torch.cuda.synchronize()
@@ -1444,22 +1769,33 @@ def main() -> int:
     frames_in = {s.name: [bundle.frame_for(s.name, t) for t in range(4)] for s in bundle.streams}
     torch.cuda.synchronize()
     ops.reset_launches()
+    kernels_pkg.reset_graph_launches()
+    replays0 = {id(g): g.replays for m in bundle.models for _, g in m.captured_graphs()}
+    seg0, _ = device_segments(torch)
+    clock.start()
     for t in range(4):
         for s in bundle.streams:
             server.submit(s.model_index, frames_in[s.name][t])
     server.pump()
     outs = server.drain()
     torch.cuda.synchronize()
-    launches = dict(ops.launches)
+    gcs, new_segments = clock.stop(), device_segments(torch)[0] - seg0
+    # every launch of the run is a graph replay: each replay of a captured
+    # segment counts the launches its capture recorded
+    launches = {n: ops.launches[n] + kernels_pkg.graph_launches[n] for n in REPLACES}
     rep = server.report()
-    print("launches:", json.dumps(launches))
+    print("launches:", json.dumps(launches), "of which outside a graph:", json.dumps(dict(ops.launches)))
+    for m in bundle.models:
+        for name, g in m.captured_graphs():
+            print(f"  graph {name}: {g.replays - replays0.get(id(g), 0)} replays x {json.dumps(g.launches)}")
     # 8 Pix2Pix frames x 8 + 4 YOLOv8 frames x 63 = 316 at img 256
     want = {n: frames["pix"] * per_frame["pix"][n] + frames["yolo"] * per_frame["yolo"][n] for n in REPLACES}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, want {want}")
+    if launches != want or any(ops.launches.values()):
+        raise AssertionError(f"launch counts {launches} ({dict(ops.launches)} outside a graph), want {want}")
     print(
         f"served {rep['frames']} frames in {rep['wall_s'] * 1e3:.1f} ms: {rep['aggregate_fps']:.2f} frames/s, "
-        f"p50 {rep['latency_p50_ms']:.2f} ms, p99 {rep['latency_p99_ms']:.2f} ms | {smi}"
+        f"p50 {rep['latency_p50_ms']:.2f} ms, p99 {rep['latency_p99_ms']:.2f} ms; {len(gcs)} Python collections "
+        f"in the run ({sum(g[1] for g in gcs):.2f} ms: {gcs}), {new_segments} new device segments | {smi}"
     )
     shapes = {0: [(1, IMG, IMG, 3)], 1: [(1, IMG // d, IMG // d, 66) for d in (8, 16, 32)]}
     worst = 0.0
@@ -1482,6 +1818,14 @@ def main() -> int:
     print(f"outputs: {len(bundle.streams)} streams x 4 frames finite, shapes right, "
           f"max |served - xla run_all| = {worst:.2e} (atol 5e-3, rtol 1e-2); warm-up completions {warm_counts}")
 
+    served_rows = [{"jit_segments": True, "frames_per_s": rep["aggregate_fps"], "p50_ms": rep["latency_p50_ms"],
+                    "p99_ms": rep["latency_p99_ms"], "issue_share": _engine_shares(rep),
+                    "blocked_share": 1 - rep["overlap"]["overlap_efficiency"], "gc": gcs,
+                    "new_device_segments": new_segments}]
+    print(f"host-issue share {json.dumps(served_rows[0]['issue_share'])}, blocked "
+          f"{100 * served_rows[0]['blocked_share']:.2f}% of the tick wall")
+    served_rows += served_ab(torch, build_server, ops, dev, smi, want, clock)
+
     # after the served run: the profiler's tracing must not tax its launches
     split_rows, split_totals = block_split(torch, ops, bench, calls, frames)
     for name, desc, count, sp in split_rows:
@@ -1492,6 +1836,7 @@ def main() -> int:
               + (", ".join(f"{k} {v:.3f}" for k, v in tot.items()) or "not measured") + f" | {smi}")
     del calls
 
+    lap("served run and pass splits")
     print(f"-- main path in bf16: one frame each through Pix2Pix and YOLOv8n (img {IMG}, base {BASE}, "
           "act_dtype bfloat16) on the fused kernels, against the plain ops")
     bf16_launches, bf16_checks, bf16_calls = bf16_forward_phase(torch, ops, dev)
@@ -1516,6 +1861,11 @@ def main() -> int:
         print(f"{key} bf16: {len(cs)} calls in {len(groups)} distinct shapes, all within 5e-2")
     del bf16_calls
 
+    lap("bf16 forward")
+    print(f"-- the launcher: repro_torch.launch.serve.main in this process (img {IMG}, base {BASE})")
+    launcher_rows = launcher_phase(torch, smi, dev, ops, want)
+    lap("launcher")
+
     print("-- deconv2d vs its plain version, shape classes (ms on the card, CUDA events)")
     class_err = {}
     for name, a_, kw in deconv_classes(torch, dev):
@@ -1533,9 +1883,11 @@ def main() -> int:
     for dt, e in class_err.items():
         print(f"deconv2d classes, {dt}: max abs err {e:.3e} (pin {1e-4 if dt == 'float32' else 5e-2:g})")
 
+    lap("deconv2d classes")
     print(f"-- training at full width (img {IMG}, base {BASE}), TF32 off")
     cfg, trained, train_rows = train_phase(torch, smi, dev)
 
+    lap("training")
     print("-- main path: surgery + evaluation through the deconv2d kernel")
     deconv_launches, deconv_calls, eval_metrics = eval_phase(torch, deconv_ops, cfg, trained, dev)
     deconv_tot = dict.fromkeys(fields, 0.0)
@@ -1557,6 +1909,7 @@ def main() -> int:
         f"library {deconv_tot['library_ms']:.4f}, bound {deconv_tot['bound_ms']:.5f}, max_err {deconv_err:.2e} | {smi}"
     )
 
+    lap("surgery and evaluation")
     print("-- LM kernels vs plain versions, shape classes (ms on the card, CUDA events)")
     lm_bench = LMBench(attn_ops, attn_ref, ssd_ops, ssd_ref)
     ssd_split = {}
@@ -1586,6 +1939,7 @@ def main() -> int:
                   f"(control) {r['bf16_plain_vs_f32']:.3e}; kernel vs plain bf16 {r['err_vs_same_dtype_ref']:.3e}; "
                   f"|out| max {r['out_absmax']:.3e}, rms {r['out_rms']:.3e}")
 
+    lap("LM shape classes")
     print(f"-- main path: Hymba-1.5B prefill at full width ({PREFILL_B} x {PREFILL_S} tokens), TF32 off")
     hcfg, hparams, lm_launches, lm_calls, prefill_rows = hymba_prefill_phase(
         torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref
@@ -1619,9 +1973,11 @@ def main() -> int:
                   f"plain {tot['plain_ms']:.4f}, library {lib}, bound {tot['bound_ms']:.5f} | {smi}")
     del lm_calls
 
+    lap("Hymba prefill")
     print("-- Hymba-1.5B decode at full width (f32 activations and caches)")
     decode_row = hymba_decode_phase(torch, smi, dev, hcfg, hparams)
     del hparams
+    lap("Hymba decode")
 
     kernels = []
     for n in REPLACES:
@@ -1658,7 +2014,7 @@ def main() -> int:
              "phase_ptxas": phase_tc, "ssd_ptxas": ssd_tc, "ssd_split": ssd_split,
              "bf16_forward": {"launches": bf16_launches, "checks": bf16_checks},
              "hymba_prefill": prefill_rows, "lm_per_prefill": lm_tot, "hymba_decode": decode_row,
-             "flash_ptxas": flash_tc,
+             "flash_ptxas": flash_tc, "launcher": launcher_rows, "served_ab": served_rows,
              "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

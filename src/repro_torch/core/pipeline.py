@@ -5,13 +5,149 @@ span ``[lo, hi)`` runs as one segment; ``serve.StreamExecutor`` drives the
 segments of a ``PlanIR`` over the engines. ``pix2pix_staged`` and
 ``yolo_staged`` build the serving pair at coarse or fine granularity, each
 with its ``pallas_fused`` variant (the fused CUDA serving kernels).
+
+``StagedModel.jitted_segment_fn`` is the counterpart of the JAX package's
+jitted segments: a ``CapturedSegment`` runner that captures the segment in
+a CUDA graph once per state structure and replays it (one launch of the
+whole segment instead of one per op).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
+import torch
+
+from ..kernels import graph_launches, launch_counters
+from ..nn.module import tree_def, tree_leaves, tree_unflatten
 from .graph import LayerGraph
+
+# CUDA-graph memory pools by (device, CUDA stream) and the side stream each
+# device captures on. Graphs that share a pool may reuse each other's
+# intermediate memory, which is safe only while they never run at once;
+# every graph replays on the stream it was captured for, so the graphs of
+# one pool are ordered by that stream.
+_POOLS: dict[tuple[int, int], Any] = {}
+_CAPTURE_STREAMS: dict[int, Any] = {}
+
+
+def _graph_pool(stream) -> Any:
+    key = (stream.device.index, stream.cuda_stream)
+    if key not in _POOLS:
+        _POOLS[key] = torch.cuda.graph_pool_handle()
+    return _POOLS[key]
+
+
+def _capture_stream(device: torch.device):
+    if device.index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device.index]
+
+
+@dataclasses.dataclass
+class CapturedGraph:
+    """One segment captured for one state structure, params and stream."""
+
+    graph: Any  # torch.cuda.CUDAGraph
+    params: Any  # held so the id in the cache key stays this object's
+    static_in: list  # the graph's input buffers, one per state leaf
+    static_out: Any  # the graph's output tree (overwritten by every replay)
+    alias: list  # per output leaf: the input leaf it passes through, or None
+    launches: dict  # kernel launches the capture recorded, by kernel
+    replays: int = 0
+
+
+class CapturedSegment:
+    """CUDA-graph runner of one segment: ``(params, state) -> state`` like
+    ``segment_fn``, on a state of CUDA tensors.
+
+    The first call per (params, state structure, current stream) runs the
+    segment once eagerly on a side stream (the kernels' build, load and
+    shared-memory attributes stay out of the graph), then captures it into
+    a ``torch.cuda.CUDAGraph`` whose memory pool is shared by every graph
+    of that stream (``_graph_pool``). Each call copies the state into the
+    graph's input buffers, replays the graph on the current stream and
+    copies its outputs out on that stream — the next replay overwrites
+    them, while the executor may keep two frames of one segment in flight
+    and slices coalesced outputs apart. A state leaf the segment passes
+    through unchanged comes back as the caller's own tensor.
+
+    A capture that fails (a host sync such as ``.item()`` or ``.cpu()``, or
+    a branch on a tensor value, inside the segment) raises, naming the
+    segment; nothing falls back to eager. On a CPU state the segment runs
+    as ``segment_fn``: the caller asked for the CPU. Each replay adds the
+    launches its capture recorded to ``kernels.graph_launches``; the
+    capture itself launches nothing and leaves the wrappers' counters as
+    they were.
+    """
+
+    def __init__(self, name: str, fn: Callable):
+        self.name = name
+        self.fn = fn
+        self.graphs: dict[tuple, CapturedGraph] = {}
+
+    def __call__(self, params, state):
+        leaves = tree_leaves(state)
+        if not leaves or leaves[0].device.type != "cuda":
+            return self.fn(params, state)
+        stream = torch.cuda.current_stream(leaves[0].device)
+        key = (
+            id(params),
+            stream.cuda_stream,
+            tree_def(state),
+            tuple((tuple(t.shape), t.dtype, t.device) for t in leaves),
+        )
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = self._capture(params, state, leaves, stream)
+        for buf, t in zip(g.static_in, leaves):
+            buf.copy_(t)
+        g.graph.replay()
+        g.replays += 1
+        graph_launches.update(g.launches)
+        outs = [
+            leaves[a] if a is not None else o.clone()
+            for o, a in zip(tree_leaves(g.static_out), g.alias)
+        ]
+        return tree_unflatten(g.static_out, outs)
+
+    def _capture(self, params, state, leaves, stream) -> CapturedGraph:
+        side = _capture_stream(leaves[0].device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            static_in = [t.clone() for t in leaves]
+            static_state = tree_unflatten(state, static_in)
+            self.fn(params, static_state)  # warm-up: first-use work stays out of the graph
+        counters = launch_counters()
+        before = {pkg: dict(c) for pkg, c in counters.items()}
+        graph = torch.cuda.CUDAGraph()
+        # capture_begin/end rather than torch.cuda.graph, whose entry also
+        # empties the allocator's cache: every later allocation would pay
+        # a cudaMalloc again, on the hot path when a capture happens there
+        torch.cuda.synchronize(leaves[0].device)
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=_graph_pool(stream), capture_error_mode="thread_local")
+                try:
+                    static_out = self.fn(params, static_state)
+                finally:
+                    graph.capture_end()
+        except Exception as e:
+            raise RuntimeError(
+                f"CUDA-graph capture of segment {self.name} failed (a host sync such as .item() or "
+                f".cpu(), or a branch on a tensor value, inside the segment?): {e}"
+            ) from e
+        finally:
+            launched = {}
+            for pkg, c in counters.items():
+                for k, v in c.items():
+                    if v != before[pkg][k]:
+                        launched[k] = v - before[pkg][k]
+                c.update(before[pkg])
+        stream.wait_stream(side)
+        ids = {id(t): i for i, t in enumerate(static_in)}
+        alias = [ids.get(id(o)) for o in tree_leaves(static_out)]
+        return CapturedGraph(graph, params, static_in, static_out, alias, launched)
 
 
 @dataclasses.dataclass
@@ -110,12 +246,32 @@ class StagedModel:
 
         return f
 
-    def jitted_segment_fn(self, lo, hi, impl: str = "xla"):
-        """The compiled counterpart of ``segment_fn``. PyTorch runs eagerly,
-        so this is ``segment_fn`` itself and the executor calls
-        ``segment_fn``; a captured (CUDA-graph) runner, and the executor's
-        switch between the two, are queued in ROADMAP.md."""
-        return self.segment_fn(lo, hi, impl)
+    def jitted_segment_fn(self, lo, hi, impl: str = "xla") -> "CapturedSegment":
+        """The captured form of ``segment_fn`` (a ``CapturedSegment``),
+        cached on the model so every executor over the same span shares
+        its CUDA graphs, one per state structure (so one per batch
+        bucket)."""
+        cache = self.__dict__.setdefault("_graph_runners", {})
+        key = (lo, hi, impl)
+        if key not in cache:
+            cache[key] = CapturedSegment(f"{self.name}[{lo}:{hi}) {impl}", self.segment_fn(lo, hi, impl))
+        return cache[key]
+
+    def drop_graphs(self, lo, hi, impl: str = "xla") -> int:
+        """Forget the captured runner of ``[lo, hi)`` under ``impl`` and its
+        graphs (their pool memory returns to the stream's pool, for later
+        captures); returns how many graphs went. The caller makes sure no
+        replay of them is still on the card. An executor that runs the
+        span again captures it anew."""
+        runner = self.__dict__.get("_graph_runners", {}).pop((lo, hi, impl), None)
+        return len(runner.graphs) if runner is not None else 0
+
+    def captured_graphs(self) -> list[tuple[str, CapturedGraph]]:
+        """Every graph this model's segment runners captured, with the
+        runner's name."""
+        return [
+            (r.name, g) for r in self.__dict__.get("_graph_runners", {}).values() for g in r.graphs.values()
+        ]
 
     def check_route(self, spans) -> None:
         """Validate that an arbitrary span list tiles [0, n_layers) on

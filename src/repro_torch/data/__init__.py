@@ -1,4 +1,5 @@
-# Numpy-only synthetic data, a copy of the JAX package's (same seed, same arrays).
+# Numpy-only synthetic data, a copy of the JAX package's (same seed, same
+# arrays), and the prefetching loader that places batches on the device.
 from .synthetic import (
     PhantomConfig,
     detection_batches,
@@ -7,3 +8,4 @@ from .synthetic import (
     phantom_batches,
     token_batches,
 )
+from .loader import FailingIterator, Prefetcher, to_device

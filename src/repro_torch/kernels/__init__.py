@@ -46,3 +46,27 @@ def refuse_grad(name: str, *tensors, hint: str = _TRAIN_HINT) -> None:
     runs the plain ops, as the JAX package does."""
     if needs_grad(*tensors):
         raise RuntimeError(f"{name} has no backward: {hint}, or call it under torch.no_grad()")
+
+
+def launch_counters() -> dict[str, dict[str, int]]:
+    """Every kernel package's ``launches`` counter, by package: the counts
+    each ``ops`` wrapper adds one to where it launches its kernel."""
+    from .attention import ops as attention
+    from .deconv import ops as deconv
+    from .fused import ops as fused
+    from .ssd import ops as ssd
+
+    return {"fused": fused.launches, "deconv": deconv.launches, "attention": attention.launches,
+            "ssd": ssd.launches}
+
+
+# kernel launches made by CUDA-graph replays (``core.pipeline``'s captured
+# segment runners), by kernel: each replay adds the launches its graph
+# captured. The wrappers' own counters see only launches made outside a
+# graph, so a run's launches of kernel k are launch_counters()'s k plus
+# graph_launches[k]
+graph_launches = collections.Counter()
+
+
+def reset_graph_launches():
+    graph_launches.clear()

@@ -186,6 +186,15 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_def(tree):
+    """Hashable structure of a tree, leaves elided."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, tree_def(tree[k])) for k in sorted(tree)))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, tuple(tree_def(v) for v in tree))
+    return "*"
+
+
 def tree_unflatten(tree, leaves):
     """A tree of ``tree``'s structure holding ``leaves`` (in ``tree_leaves`` order)."""
     it = iter(leaves)

@@ -1,12 +1,14 @@
 # Multi-stream serving: N staged models over E engines (one CUDA stream each
 # on the card) with K frame streams, planned through the segment-level
-# PlanIR. `build_server` is the one-call facade; the open-loop pieces
-# (traffic, SLOs, admission) live in .traffic/.admission.
+# PlanIR and re-planned live by the drift-watching Replanner. `build_server`
+# is the one-call facade; the open-loop pieces (traffic, SLOs, admission)
+# live in .traffic/.admission.
 from .admission import ADMIT, DROP, SHED_RES, SHED_ROUTE, AdmissionConfig
 from .batching import BatchConfig
-from .demo import build_pix_yolo_serving, merge_flags_for
-from .executor import Completion, StreamExecutor
+from .demo import build_pix_yolo_serving, build_replanner, merge_flags_for
+from .executor import Completion, Flight, SegmentObservation, StreamExecutor, SwapEvent
 from .facade import ServerBundle, build_server
+from .replanner import ReplanConfig, ReplanEvent, Replanner
 from .server import MultiStreamServer, Request
 from .streams import StreamSpec
 from .traffic import SLOPolicy, TrafficConfig

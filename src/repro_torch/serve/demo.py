@@ -2,7 +2,7 @@
 the staged models, the N-model plan, and the stream specs.
 
 ``cost`` selects the planner's CostProvider (``analytic`` — the paper's
-roofline; the measured providers wait for the profiler port), ``norm``
+roofline — or ``measured``/``blended``/``online``), ``norm``
 selects the Pix2Pix norm layer (``instance``/``group`` build the
 batch-independent variant whose streams the executor may merge-batch).
 Weights are drawn from ``torch.Generator``s seeded ``seed`` (Pix2Pix) and
@@ -116,6 +116,19 @@ def build_pix_yolo_serving(
         impl=impl,
     )
     return models, plan, streams, (gpu, dla)
+
+
+def build_replanner(models, config=None, cost: str | CostProvider = "analytic"):
+    """Replanner over the same graphs + engine pair (in plan order:
+    ``[dla, gpu]``) that ``build_pix_yolo_serving`` planned with — attach
+    it to the server/executor to close the online re-planning loop."""
+    from .replanner import Replanner
+
+    provider = cost if isinstance(cost, CostProvider) else make_cost_provider(cost)
+    gpu, dla = jetson_orin_engines(constraints_dla=DLA_ANALOGUE_CONSTRAINTS)
+    return Replanner(
+        [m.graph for m in models], [dla, gpu], config=config, base_provider=provider
+    )
 
 
 def merge_flags_for(models) -> list[bool]:

@@ -25,7 +25,13 @@ steady-state cycle in two phases:
     the default ``dispatch="overlapped"`` mode the segments are only
     *enqueued*: the host keeps issuing the other engine's segments while
     earlier ones compute, so counter-phased engines genuinely overlap.
-    Segments run eagerly (``StagedModel.segment_fn``).
+    With ``jit_segments=True`` (the default) each (model, span, impl)
+    segment on the card is additionally captured in a CUDA graph per state
+    structure (``StagedModel.jitted_segment_fn``) and replayed — one
+    launch per engine call instead of one per op. The replay runs the same
+    kernels with the same launches as the eager op sequence, so its
+    outputs are bit-identical to ``jit_segments=False`` (eager
+    ``segment_fn``); on the CPU both run ``segment_fn``.
   * **resolve** — frames whose route finished are completed: the host
     waits for their last segment's event (the only synchronization point
     of the tick), slices merged groups apart, and stamps latencies.
@@ -39,7 +45,8 @@ ordering change, and (routes being a pure re-orchestration of the same
 op sequence) outputs equal to an unswapped run. ``prepare_plan(new_ir)``
 pre-executes the new plan's segment executables on zero-filled states of
 the shapes seen so far — the double-buffered staged-weights warmup that
-keeps compilation off the hot path before the swap.
+keeps graph captures and the kernels' first-use costs off the hot path
+before the swap.
 
 **Per-segment observation**: with ``profile_every=k``, every k-th tick is
 a *profiled* tick — each segment call is individually synchronized and
@@ -76,7 +83,7 @@ import torch
 from ..core.pipeline import StagedModel, TickLog
 from ..core.plan_ir import PlanIR, PlanSegment, ir_from_routes
 from ..core.scheduler import NModelPlan
-from ..nn.module import tree_leaves, tree_map
+from ..nn.module import tree_def, tree_leaves, tree_map
 from .batching import BatchConfig
 from .metrics import TickStats
 from .streams import FrameQueue, StreamSpec
@@ -155,18 +162,6 @@ class TensorStruct:
     dtype: torch.dtype
 
 
-# A segment state is a tree of dicts, lists and tuples with tensor leaves.
-
-
-def _tree_def(tree):
-    """Hashable structure of a tree, leaves elided."""
-    if isinstance(tree, dict):
-        return ("dict", tuple((k, _tree_def(tree[k])) for k in sorted(tree)))
-    if isinstance(tree, (list, tuple)):
-        return (type(tree).__name__, tuple(_tree_def(v) for v in tree))
-    return "*"
-
-
 def _leading(state) -> int:
     """Leading-axis extent of a state tree (the executed batch bucket)."""
     leaves = tree_leaves(state)
@@ -176,8 +171,15 @@ def _leading(state) -> int:
     return int(shape[0]) if shape else 1
 
 
+def _spans(routes) -> set[tuple[int, int, int, str]]:
+    """The (model, lo, hi, impl) spans of some routes."""
+    return {(s.model_index, s.lo, s.hi, getattr(s, "impl", "xla")) for segs in routes for s in segs}
+
+
 def _param_device(model: StagedModel) -> torch.device:
-    leaves = tree_leaves(model.params)
+    """The device of the model's first parameter tensor (the CPU for a
+    model without tensors, such as one whose ops take no params)."""
+    leaves = [t for t in tree_leaves(model.params) if isinstance(t, torch.Tensor)]
     return leaves[0].device if leaves else torch.device("cpu")
 
 
@@ -207,6 +209,7 @@ class StreamExecutor:
         engine_names: list[str] | None = None,
         model_labels: list[str] | None = None,
         dispatch: str = "overlapped",
+        jit_segments: bool = True,
         profile_every: int = 0,
         on_segment: Callable[[SegmentObservation], None] | None = None,
         segment_delay_fn: Callable[[PlanSegment], float] | None = None,
@@ -272,12 +275,16 @@ class StreamExecutor:
         self._engine_streams = (
             [torch.cuda.Stream(device) for _ in self.place_fns] if device.type == "cuda" else None
         )
+        self.jit_segments = jit_segments
         # keyed by (model, lo, hi, impl, bucket): hot-swapped plans whose
         # spans (and implementation bindings) coincide with an old plan's
         # reuse the same (possibly compiled) runner; the bucket key gives
         # every batch size its own warmed executable so steady-state
         # batched serving never recompiles
         self._seg_fns: dict[tuple[int, int, int, str, int], Callable] = {}
+        # (model, lo, hi, impl) spans a swap took out of the plan: their
+        # runners (and CUDA graphs) are dropped once no flight uses them
+        self._retired: set[tuple[int, int, int, str]] = set()
         # degraded single-segment routes, keyed (model, plan revision)
         self._degraded_routes: dict[tuple[int, int], tuple[PlanSegment, ...]] = {}
         # per-model stream admission order: strictly tier-first (round-robin
@@ -354,7 +361,12 @@ class StreamExecutor:
 
         In-flight frames keep their admission-time route snapshots, so the
         swap drops nothing and changes no frame's op sequence — only where
-        future segments run. Returns the new plan revision.
+        future segments run. The old plan's spans that the new one does not
+        run keep their runners until the last flight on them completes;
+        then ``tick`` drops the runners and their captured graphs
+        (``StagedModel.drop_graphs``), so a server that re-plans for good
+        holds the graphs of its live routes only. Returns the new plan
+        revision.
         """
         if tuple(new_ir.models) != tuple(self.plan.models):
             raise ValueError(
@@ -367,6 +379,7 @@ class StreamExecutor:
         new_ir.validate_against([m.n_layers for m in self.models])
         self._check_span_staging(new_ir, self.models)
         rev = self.plan.revision + 1
+        self._retired |= _spans(self.plan.segments)
         self.plan = new_ir.with_revision(rev)
         self.swap_events.append(
             SwapEvent(
@@ -385,10 +398,12 @@ class StreamExecutor:
 
         For every stage-0 state shape seen so far, threads zeros of that
         shape through the new routes (on the models' device), running each
-        segment once — seeding the runner cache and the kernels' first-use
-        costs (the old plan's runners stay valid for in-flight frames).
-        Returns the number of segment executions warmed; silently skips
-        models that have not seen a frame yet.
+        segment once on its engine's stream — seeding the runner cache, the
+        runners' CUDA graphs (captured here, on the calling thread, for the
+        stream that will replay them) and the kernels' first-use costs (the
+        old plan's runners stay valid for in-flight frames). Returns the
+        number of segment executions warmed; silently skips models that
+        have not seen a frame yet.
         """
         new_ir.validate_against([m.n_layers for m in self.models])
         self._check_span_staging(new_ir, self.models)
@@ -407,7 +422,13 @@ class StreamExecutor:
                         key = (mi, seg.lo, seg.hi, impl, bucket)
                         if key not in self._seg_fns:
                             self._seg_fns[key] = self._make_runner(mi, seg.lo, seg.hi, impl)
-                        state = self._seg_fns[key](model.params, state)
+                        if device.type == "cuda":
+                            # one segment at a time, each on its engine's
+                            # stream: the state changes streams only here,
+                            # with the card idle
+                            torch.cuda.synchronize(device)
+                        with torch.cuda.stream(self._stream_of(seg.engine)):
+                            state = self._seg_fns[key](model.params, state)
                         warmed += 1
                     if device.type == "cuda":
                         torch.cuda.synchronize(device)
@@ -454,8 +475,23 @@ class StreamExecutor:
             acc = self._wait_acc[engine] = [0.0, 0.0, 0.0]
         acc[slot] += dt
 
+    @property
+    def captures_graphs(self) -> bool:
+        """Whether segments run as captured CUDA graphs (``jit_segments``
+        with the models on a card)."""
+        return self.jit_segments and self._engine_streams is not None
+
+    def _stream_of(self, engine: int):
+        """The CUDA stream of an engine (None on the CPU)."""
+        return self._engine_streams[engine] if self._engine_streams is not None else None
+
     def _make_runner(self, mi: int, lo: int, hi: int, impl: str = "xla") -> Callable:
-        return self.models[mi].segment_fn(lo, hi, impl=impl)
+        model = self.models[mi]
+        if self.jit_segments:
+            # cached on the model: executors over the same span share its
+            # captured graphs (per state structure and stream)
+            return model.jitted_segment_fn(lo, hi, impl=impl)
+        return model.segment_fn(lo, hi, impl=impl)
 
     def _degraded_route(self, mi: int) -> tuple[PlanSegment, ...]:
         """The model's shed-staging route: the whole layer span as one
@@ -484,6 +520,21 @@ class StreamExecutor:
             self._degraded_routes[key] = route
         return route
 
+    def _drop_retired(self):
+        """Drop the runners (and CUDA graphs) of retired spans that neither
+        the plan, a degraded route nor an in-flight flight still runs. A
+        completed flight's last segment was waited on, and it waited on
+        the flight's earlier ones, so no replay of a dropped graph is still
+        on the card."""
+        live = _spans(self.plan.segments) | _spans(self._degraded_routes.values())
+        live |= _spans(f.route for f in self.in_flight)
+        for mi, lo, hi, impl in self._retired - live:
+            for key in [k for k in self._seg_fns if k[:4] == (mi, lo, hi, impl)]:
+                del self._seg_fns[key]
+            if self.jit_segments:
+                self.models[mi].drop_graphs(lo, hi, impl)
+        self._retired &= live
+
     def _segment_runner(self, mi: int, seg: PlanSegment, bucket: int = 1) -> Callable:
         impl = getattr(seg, "impl", "xla")
         key = (mi, seg.lo, seg.hi, impl, bucket)
@@ -501,7 +552,7 @@ class StreamExecutor:
         seg = flight.route[flight.stage]
         eng = seg.engine
         t0 = time.perf_counter()
-        stream = self._engine_streams[eng] if self._engine_streams is not None else None
+        stream = self._stream_of(eng)
         with torch.cuda.stream(stream):  # a no-op for None (CPU)
             # the hand-off: wait for the producing stream's event, and keep
             # the allocator from reusing the inputs' memory until this
@@ -616,7 +667,7 @@ class StreamExecutor:
 
     def _note_state_struct(self, mi: int, state):
         struct = tree_map(lambda x: TensorStruct(tuple(x.shape), x.dtype), state)
-        key = (_tree_def(struct), tuple((s.shape, s.dtype) for s in tree_leaves(struct)))
+        key = (tree_def(struct), tuple((s.shape, s.dtype) for s in tree_leaves(struct)))
         known = self._state_structs[mi]
         if key not in [k for k, _ in known]:
             known.append((key, struct))
@@ -869,6 +920,8 @@ class StreamExecutor:
             self._tick_delay.clear()
         for flight in done:
             self._complete(flight)
+        if self._retired:
+            self._drop_retired()
         self.tick_stats.append(
             TickStats(
                 tick=self.tick_count,

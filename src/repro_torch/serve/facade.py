@@ -11,12 +11,15 @@ device, and returns a ``ServerBundle`` holding each layer:
     report = bundle.run_open_loop(horizon_s=2.0)
 
 It runs on the CUDA card unless ``device`` names another; each engine of
-the plan is one CUDA stream there. Fleets (``replicas``/``workers``) and
-online re-planning (``replan``) are not ported yet and raise.
+the plan is one CUDA stream there, and each planned segment a captured
+CUDA graph (``jit_segments``). Fleets (``replicas``/``workers``) are not
+ported yet and raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 from typing import Any, Callable
 
 import torch
@@ -27,6 +30,7 @@ from ..core.plan_ir import PlanIR
 from .admission import AdmissionConfig
 from .batching import BatchConfig
 from .demo import _build_pix_yolo_models, merge_flags_for, resolve_device
+from .replanner import ReplanConfig, Replanner
 from .server import MultiStreamServer
 from .streams import StreamSpec
 from .traffic import SLOPolicy, TrafficConfig, run_open_loop
@@ -37,8 +41,8 @@ class ServerBundle:
     """Every layer of one constructed serving stack, plus drivers.
 
     ``traffic`` maps stream name -> ``TrafficConfig`` (empty when built
-    without open-loop traffic); ``admission`` is None when that layer is
-    off, ``replanner`` always (not ported yet)."""
+    without open-loop traffic); ``replanner``/``admission`` are None when
+    those layers are off."""
 
     models: list
     plan: PlanIR
@@ -46,7 +50,7 @@ class ServerBundle:
     engines: tuple  # planning order: (dla, gpu)
     provider: CostProvider
     server: MultiStreamServer
-    replanner: None
+    replanner: Replanner | None
     admission: AdmissionConfig | None
     traffic: dict[str, TrafficConfig]
     img: int = 64
@@ -164,14 +168,17 @@ def build_server(
     merge_batches: bool | list[bool] | None = None,
     batching: BatchConfig | int | None = None,
     dispatch: str = "overlapped",
+    jit_segments: bool = True,
     # SLOs + open loop
     slos: SLOPolicy | dict | None = None,
     deadline_ms: float | None = None,
     traffic: TrafficConfig | dict[str, TrafficConfig] | None = None,
     admission: AdmissionConfig | bool | None = None,
     resolution_flexible: bool | list[bool] = False,
-    # online re-planning and fleets (not ported yet)
-    replan: bool = False,
+    # online re-planning
+    replan: bool | ReplanConfig = False,
+    calibration_path: str | None = None,
+    # fleets (not ported yet)
     replicas: int = 1,
     workers: int = 0,
     # placement
@@ -190,19 +197,28 @@ def build_server(
     reconstruction tier 1); pass ``slos`` for full control. ``impl``
     selects the implementation-planning mode (``xla`` | ``auto`` |
     ``pallas``); segments planned ``pallas_fused`` run the fused CUDA
-    serving kernels on the card.
+    serving kernels on the card. ``jit_segments`` captures each planned
+    segment in a CUDA graph on the card and replays it (bit-identical to
+    the eager ops; ``False`` runs them eagerly).
 
-    ``replan``, ``replicas > 1`` and ``workers > 0`` raise
-    ``NotImplementedError``: the re-planner and the fleets are queued in
-    ROADMAP.md."""
-    if replan:
-        raise NotImplementedError("replan needs the serve.replanner port (queued in ROADMAP.md)")
+    ``replan=True`` attaches a ``Replanner`` with the default
+    ``ReplanConfig`` (or pass one) over the planning provider — an
+    ``OnlineCost`` provider is reused, so the live observations feed it.
+    ``calibration_path`` warm-starts that re-planner's per-engine scales
+    from a ``save_calibration`` JSON when the file exists and the provider
+    has none yet (a calibration learned over another base provider warns
+    and is not loaded: the re-planner calibrates live).
+
+    ``replicas > 1`` and ``workers > 0`` raise ``NotImplementedError``:
+    ``DevicePool`` and the fleets are queued in ROADMAP.md."""
     if replicas != 1:
         raise NotImplementedError(
-            "replicas > 1 needs DevicePool and serve.fleet (queued in ROADMAP.md)"
+            "replicas > 1 needs DevicePool and serve.fleet (queued in ROADMAP.md, module queue item 2)"
         )
     if workers:
-        raise NotImplementedError("workers > 0 needs serve.multiproc (queued in ROADMAP.md)")
+        raise NotImplementedError(
+            "workers > 0 needs serve.multiproc (queued in ROADMAP.md, module queue item 2)"
+        )
     device = resolve_device(device)
     provider = cost if isinstance(cost, CostProvider) else make_cost_provider(cost)
     models, streams, (gpu, dla) = _build_pix_yolo_models(
@@ -231,6 +247,19 @@ def build_server(
         admission = AdmissionConfig()
     elif admission is False:
         admission = None
+    replanner = None
+    if replan:
+        config = replan if isinstance(replan, ReplanConfig) else None
+        replanner = Replanner(
+            [m.graph for m in models], [dla, gpu], config=config, base_provider=provider
+        )
+        if calibration_path and os.path.exists(calibration_path) and not replanner.online.snapshot():
+            try:
+                replanner.load_calibration(calibration_path)
+            except ValueError as e:
+                # scales learned over another base provider are in other
+                # units: calibrate live instead
+                warnings.warn(f"calibration {calibration_path} not applicable, re-calibrating: {e}")
     server = MultiStreamServer(
         models,
         plan_ir,
@@ -240,6 +269,8 @@ def build_server(
         merge_batches=merge_batches,
         batching=batching,
         dispatch=dispatch,
+        jit_segments=jit_segments,
+        replanner=replanner,
         admission=admission,
         resolution_flexible=resolution_flexible,
     )
@@ -250,7 +281,7 @@ def build_server(
         engines=(dla, gpu),
         provider=provider,
         server=server,
-        replanner=None,
+        replanner=replanner,
         admission=admission,
         traffic=_normalize_traffic(traffic, streams),
         img=img,

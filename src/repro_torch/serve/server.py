@@ -8,8 +8,10 @@ when queues back up, and folds completions into per-stream latency /
 throughput metrics — the stand-in for the paper's DeepStream app. On a
 CUDA card the executor runs each engine of the plan on its own stream.
 
-The online re-planner (``replanner``) is not ported yet: the argument is
-accepted only as ``None``.
+Pass a ``serve.Replanner`` to close the online re-planning loop: the
+server wires it into the executor (profiled ticks feed the ``OnlineCost``
+EMA, the drift detector hot-swaps plans at frame boundaries) and folds
+its state — per-engine scales, drift, swap events — into ``report()``.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from ..core.scheduler import NModelPlan
 from .admission import ADMIT, DROP, AdmissionConfig
 from .batching import BatchConfig
 from .executor import StreamExecutor
-from .metrics import ServeMetrics
+from .metrics import ServeMetrics, segment_summary
+from .replanner import Replanner
 from .streams import StreamSpec
 
 
@@ -45,15 +48,12 @@ class MultiStreamServer:
         merge_batches: bool | list[bool] = False,
         place_fns=None,
         dispatch: str = "overlapped",
-        replanner: None = None,
+        jit_segments: bool = True,
+        replanner: Replanner | None = None,
         admission: AdmissionConfig | None = None,
         resolution_flexible: bool | list[bool] = False,
         batching: BatchConfig | None = None,
     ):
-        if replanner is not None:
-            raise NotImplementedError(
-                "online re-planning needs the serve.replanner port (queued in ROADMAP.md)"
-            )
         self.executor = StreamExecutor(
             models,
             plan,
@@ -63,11 +63,18 @@ class MultiStreamServer:
             merge_batches=merge_batches,
             place_fns=place_fns,
             dispatch=dispatch,
+            jit_segments=jit_segments,
             batching=batching,
         )
+        self.replanner = replanner
         self.metrics = ServeMetrics(
             [s.name for s in streams], slos={s.name: s.slo for s in streams if s.slo is not None}
         )
+        if replanner is not None:
+            replanner.attach(self.executor)
+            # close the SLO feedback loop: sustained deadline misses are a
+            # re-plan trigger alongside queue growth and cost drift
+            replanner.slo_miss_fn = self.metrics.recent_slo_miss_rate
         self.admission = admission
         if isinstance(resolution_flexible, bool):
             self.resolution_flexible = [resolution_flexible] * len(models)
@@ -177,6 +184,8 @@ class MultiStreamServer:
             slos={s.name: s.slo for s in ex.streams if s.slo is not None},
         )
         self._t0 = None
+        if self.replanner is not None:
+            self.replanner.slo_miss_fn = self.metrics.recent_slo_miss_rate
 
     # -- closed-loop intake -------------------------------------------------
 
@@ -215,4 +224,7 @@ class MultiStreamServer:
         rep = self.metrics.report(wall)
         rep["dispatch"] = self.executor.dispatch
         rep["plan_revision"] = self.executor.plan_revision
+        if self.replanner is not None:
+            rep["replan"] = self.replanner.summary()
+            rep["segments"] = segment_summary(self.executor.segment_obs)
         return rep

@@ -29,6 +29,7 @@ import repro.models as jm  # noqa: E402
 from repro_torch.core.api import plan as tplan  # noqa: E402
 from repro_torch.core.constraints import DLA_ANALOGUE_CONSTRAINTS as TDLA  # noqa: E402
 from repro_torch.core.engine import jetson_orin_engines as tengines  # noqa: E402
+from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.fused import ops  # noqa: E402
 import repro_torch.models as tm  # noqa: E402
 from repro_torch.nn import from_jax  # noqa: E402
@@ -182,29 +183,35 @@ NEW_MODULES = [
     "repro_torch.nn.mlp", "repro_torch.nn.attention", "repro_torch.nn.ssm", "repro_torch.models.hymba",
     "repro_torch.configs", "repro_torch.configs.hymba_1_5b", "repro_torch.configs.pix2pix_mri",
     "repro_torch.configs.yolov8_stroke",
+    # the launcher slice: graph runners, measured costs, re-planner, loader
+    "repro_torch.core.profiler", "repro_torch.serve.replanner", "repro_torch.data.loader",
+    "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.launch.analytic",
 ]
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of the package and ``chip_smoke.py`` import neither
-    ``jax`` nor ``repro``: once imported, and in every import statement
-    of the smoke script (its work imports lazily, behind ``__main__``)."""
+    """Every module of the package and the card scripts at the root
+    (``chip_smoke.py``, ``served_trace.py``) import neither ``jax`` nor
+    ``repro``: once imported, and in every import statement of the scripts
+    (their work imports lazily, behind ``__main__``)."""
     import ast
 
-    smoke = SRC.parent / "chip_smoke.py"
+    scripts = [SRC.parent / "chip_smoke.py", SRC.parent / "served_trace.py"]
     names = set()
-    for node in ast.walk(ast.parse(smoke.read_text())):
-        if isinstance(node, ast.Import):
-            names.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            names.add(node.module or "")
+    for script in scripts:
+        for node in ast.walk(ast.parse(script.read_text())):
+            if isinstance(node, ast.Import):
+                names.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                names.add(node.module or "")
     assert not {n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")}, names
     code = (
         "import importlib, importlib.util, pkgutil, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(smoke)!r})\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for path in {[str(p) for p in scripts]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(path.rsplit('/', 1)[-1][:-3], path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         f"missing = sorted(set({NEW_MODULES!r}) - set(sys.modules))\n"
@@ -226,12 +233,14 @@ def test_build_server_defaults_to_the_card(monkeypatch):
 
 
 def test_unported_serving_layers_raise():
-    for kw in (dict(replicas=2), dict(workers=1), dict(replan=True)):
+    """The fleets raise; the re-planner, ported since, attaches."""
+    for kw in (dict(replicas=2), dict(workers=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_server(img=32, base=8, n_pix=1, n_yolo=1, device="cpu", **kw)
-    bundle = build_server(img=32, base=8, n_pix=1, n_yolo=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="replanner"):
-        MultiStreamServer(bundle.models, bundle.plan, bundle.streams, replanner=object())
+    bundle = build_server(img=32, base=8, n_pix=1, n_yolo=1, device="cpu", replan=True)
+    assert bundle.replanner is not None and bundle.server.executor.on_tick == bundle.replanner.maybe_replan
+    server = MultiStreamServer(bundle.models, bundle.plan, bundle.streams, replanner=bundle.replanner)
+    assert server.replanner is bundle.replanner
 
 
 def test_frame_for_is_seeded_per_stream_and_frame():
@@ -259,13 +268,16 @@ def test_card_serving_dispatch_modes_bit_identical_and_match_plain_ops():
             dispatch=dispatch, device="cuda",
         )
         ops.reset_launches()
+        kernels.reset_graph_launches()
         for t in range(3):
             for s in bundle.streams:
                 bundle.server.submit(s.model_index, bundle.frame_for(s.name, t))
         bundle.server.pump()
         outs[dispatch] = bundle.server.drain()
         torch.cuda.synchronize()
-        assert ops.launches["conv_block"] > 0 and ops.launches["sppf_pyramid"] == 3
+        # the segments are CUDA graphs: every frame's launches are replays
+        # (the wrappers count only each graph's warm-up, outside it)
+        assert kernels.graph_launches["conv_block"] > 0 and kernels.graph_launches["sppf_pyramid"] == 3
         assert max(c.batch for c in bundle.server.executor.completions) > 1  # merged flights
         bundles[dispatch] = bundle
     a, b = outs["overlapped"], outs["serialized"]
@@ -284,10 +296,12 @@ def test_card_serving_dispatch_modes_bit_identical_and_match_plain_ops():
 
 @pytest.mark.parametrize("name", ["measured", "blended", "online"])
 def test_measured_costs_wait_for_the_profiler_port(name):
+    """The measured providers, which waited for the ``core.profiler`` port,
+    now plan the served pair (tests/test_torch_cost_model.py holds them
+    against the JAX package)."""
     from repro_torch.core.cost_model import ANALYTIC, make_cost_provider
 
     assert make_cost_provider("analytic") is ANALYTIC
-    with pytest.raises(NotImplementedError, match="profiler"):
-        make_cost_provider(name)
-    with pytest.raises(NotImplementedError, match="profiler"):
-        build_server(img=32, base=8, n_pix=1, n_yolo=1, device="cpu", cost=name)
+    assert make_cost_provider(name).name == name
+    bundle = build_server(img=32, base=8, n_pix=1, n_yolo=1, device="cpu", cost=name, impl="auto")
+    assert bundle.plan.cost_provider == name and bundle.provider.name == name
