@@ -49,7 +49,15 @@ toolkit, this
    graphs against ``--no-jit-segments`` bit-exact at 316/64/4 launches,
    ``--cost measured``, ``--cost online --replan`` with one forced swap,
    no drop and each flight in flight at the swap finishing its admitted
-   route, open-loop traffic, ``--mode lm``);
+   route, open-loop traffic, ``--mode lm``); then the paper's replicated
+   pipelines (``fleet_phase``): the single server, ``replicas=2`` and
+   ``workers=1``/``2`` at full width, each bit-exact against the single
+   server with 316/64/4 launches summed over its replicas or workers, all
+   replays; an open-loop run of each at one offered load (frames/s,
+   goodput, p50/p99, host-issue share, device memory per process); one
+   replica's plan swapped, then the other's, with the shared graph
+   runners held to the live spans; a worker killed and evicted; one
+   launcher call with ``--workers 2``;
 5. holds the ``deconv2d`` kernel (``kernels/deconv/csrc``) against its plain
    version at the generator's 8 up-sampling shape classes, a B=8 case and a
    bf16 case (max abs error <= 1e-4 in f32, <= 5e-2 in bf16, reported by
@@ -1604,6 +1612,342 @@ def launcher_phase(torch, smi, dev, ops, want):
     return rows
 
 
+# The fleet phase's open-loop load, the same total for 1 and 2 replicas or
+# workers: Poisson arrivals at FLEET_RATE_HZ on each of the 3 streams for
+# FLEET_HORIZON_S seconds (600 frames/s offered), each frame held to a
+# FLEET_DEADLINE_MS deadline (goodput counts the frames that meet it)
+FLEET_RATE_HZ, FLEET_HORIZON_S, FLEET_DEADLINE_MS = 200.0, 2.0, 50.0
+FLEET_FRAMES = 4  # frames per stream of each fleet's closed-loop check
+FLEET_RUNS = 2  # open-loop runs of each fleet, one after the other
+
+
+def fleet_phase(torch, smi, dev, ops, want):
+    """The paper's replicated pipelines at full width (img 256, base 64,
+    ``impl="pallas"``, 2 Pix2Pix + 1 YOLOv8 streams, every segment a
+    replayed CUDA graph), through ``build_server``:
+
+    1. the single server (R1), ``replicas=2`` in this process (R2), and
+       ``workers=1`` / ``workers=2`` worker processes (W1, W2), each fed
+       the same ``FLEET_FRAMES`` frames per stream, named offers, after its
+       warm-up (the workers warm and capture before their ready): per-stream
+       outputs bit-exact against R1; the conv_block, deconv_block and
+       sppf_pyramid launches, summed over the replicas (this process's
+       counters) or over the workers' ``counters()``, equal ``want`` (the
+       main path's 316/64/4 for the same frames), every one a replay;
+    2. ``FLEET_RUNS`` open-loop runs of each at the same total offered
+       load (``FLEET_RATE_HZ`` per stream for ``FLEET_HORIZON_S``): frames/s,
+       goodput under ``FLEET_DEADLINE_MS``, p50/p99, each engine's
+       host-issue share, and device memory per process (what the server
+       allocates and reserves after its warm-up, the reservations holding
+       the CUDA-graph pools, and the peak allocated over the run, which
+       holds the outputs the server keeps);
+    3. on R2: one replica swaps to the ``max_cuts=2`` plan and serves, then
+       the other: the retired spans' runners stay in the shared models'
+       cache, held by the other replica alone and without graphs on the
+       swapped replica's streams, until both have swapped; then the cache
+       holds the live spans only (counted in ``captured_graphs()``), and
+       every output stays bit-exact against R1;
+    4. on W2: worker 1 killed, 2 more frames per stream offered: it is
+       evicted and its streams are served by worker 0;
+    5. one launcher call with ``--workers 2``.
+
+    Returns the phase's rows."""
+    import gc
+
+    from repro_torch import kernels as kernels_pkg
+    from repro_torch.core.api import plan as core_plan
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import TrafficConfig, build_server
+
+    F = FLEET_FRAMES
+    kw = dict(img=IMG, base=BASE, n_pix=2, n_yolo=1, impl="pallas", device=dev, max_queue=8,
+              deadline_ms=FLEET_DEADLINE_MS,
+              traffic=TrafficConfig(process="poisson", rate_hz=FLEET_RATE_HZ, seed=5))
+    rows, ref, frames = {}, None, None
+
+    def drive(server, streams, lo, n):
+        for t in range(lo, lo + n):
+            for s in streams:
+                server.offer(s.name, frames[s.name][t])
+            server.tick()
+        return server.drain()
+
+    def counts(server, proc):
+        """(replayed, outside a graph) launches of the three kernels."""
+        if proc:
+            c = server.counters()
+            return ({n: c["graph_launches"].get(n, 0) for n in REPLACES},
+                    {n: c["launches"].get(n, 0) for n in REPLACES}, c)
+        torch.cuda.synchronize()
+        return {n: kernels_pkg.graph_launches[n] for n in REPLACES}, dict(ops.launches), None
+
+    def reset(server, proc):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        kernels_pkg.reset_graph_launches()
+        if proc:
+            server.reset_counters()
+
+    def host(outs, name, n):
+        return [[t.cpu() for t in _leaves_of(o)] for o in outs[name][-n:]]
+
+    def worst_diff(got, want_):
+        worst = 0.0
+        for name in want_:
+            for fa, fb in zip(got[name], want_[name]):
+                for ta, tb in zip(fa, fb):
+                    if ta.shape != tb.shape or not bool(torch.isfinite(ta).all()):
+                        raise AssertionError(f"{name}: shape {tuple(ta.shape)} vs {tuple(tb.shape)} or non-finite")
+                    if not torch.equal(ta, tb):
+                        worst = max(worst, (ta - tb).abs().max().item())
+        return worst
+
+    t_step = [time.perf_counter()]
+
+    def step(what):
+        """Print the host seconds since the previous step."""
+        now = time.perf_counter()
+        print(f"[fleet time] {what}: {now - t_step[0]:.1f} s")
+        t_step[0] = now
+
+    for key, fkw in (("R1", {}), ("R2", {"replicas": 2}), ("W1", {"workers": 1}), ("W2", {"workers": 2})):
+        proc = "workers" in fkw
+        step("before " + key)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        m0, v0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        bundle = build_server(**kw, **fkw)
+        server = bundle.server
+        if not server.executor.captures_graphs:
+            raise AssertionError(f"{key}: the segments are not captured in CUDA graphs")
+        if frames is None:
+            frames = {s.name: [bundle.frame_for(s.name, t) for t in range(F + 2)] for s in bundle.streams}
+        if not proc:  # a worker warms every stream (its graph captures) before its ready
+            for s in bundle.streams:
+                server.offer(s.name, bundle.frame_for(s.name, 99))
+            server.drain()
+        torch.cuda.synchronize()
+        ready_s = time.perf_counter() - t0
+        # allocated: weights, kept outputs; reserved adds the CUDA-graph pools
+        held, reserved = torch.cuda.memory_allocated() - m0, torch.cuda.memory_reserved() - v0
+        server.reset_metrics()
+        reset(server, proc)
+        outs = drive(server, bundle.streams, 0, F)
+        replayed, outside, c = counts(server, proc)
+        if replayed != want or any(outside.values()):
+            raise AssertionError(f"{key}: replayed {replayed}, outside a graph {outside}, want {want} all replayed")
+        for s in bundle.streams:
+            if len(outs[s.name]) != F + (0 if proc else 1):
+                raise AssertionError(f"{key} {s.name}: {len(outs[s.name])} outputs")
+        got = {s.name: host(outs, s.name, F) for s in bundle.streams}
+        if ref is None:
+            ref = got
+        worst = worst_diff(got, ref)
+        if worst:
+            raise AssertionError(f"{key}: outputs differ from the single server's by up to {worst:.3e}: want bit-exact")
+        workers_mem = ({w: {"held_bytes": wc["mem_bytes"], "reserved_bytes": wc["reserved_bytes"]}
+                        for w, wc in c["per_worker"].items()} if proc else None)
+        graphs = ([wc["captured_graphs"] for wc in c["per_worker"].values()] if proc
+                  else [len(m.captured_graphs()) for m in bundle.models])
+        print(f"fleet {key}: ready in {ready_s:.1f} s, {F} frames x {len(bundle.streams)} streams bit-exact against "
+              f"the single server, launches {json.dumps(replayed)} all replayed, captured graphs {graphs}, device "
+              f"memory allocated / reserved {held / 2**20:.1f} / {reserved / 2**20:.1f} MiB in this process"
+              + (f", per worker {[(round(v['held_bytes'] / 2**20, 1), round(v['reserved_bytes'] / 2**20, 1)) for v in workers_mem.values()]} MiB"
+                 if proc else ""))
+
+        step(f"{key} built, warmed and checked")
+        rows[key] = {"ready_s": ready_s, "held_bytes": held, "reserved_bytes": reserved, "workers_mem": workers_mem,
+                     "captured_graphs": graphs, "launches": replayed, "open_loop": []}
+        # the open loop, the same total offered load for every fleet, twice
+        for run in range(FLEET_RUNS):
+            server.reset_metrics()
+            reset(server, proc)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            r0 = torch.cuda.memory_allocated()
+            rep = bundle.run_open_loop(FLEET_HORIZON_S, max_wall_s=120.0)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - r0
+            worker_peaks = ([wc["peak_mem_bytes"] for wc in server.counters()["per_worker"].values()]
+                            if proc else None)
+            adm = rep["admission"]
+            row = {"frames": rep["frames"], "offered": adm["offered"], "dropped": adm["dropped"],
+                   "frames_per_s": rep["aggregate_fps"], "goodput_fps": rep["goodput_fps"],
+                   "p50_ms": rep["latency_p50_ms"], "p99_ms": rep["latency_p99_ms"], "wall_s": rep["wall_s"],
+                   "issue_share": _engine_shares(rep), "blocked_share": 1 - rep["overlap"]["overlap_efficiency"],
+                   "router": rep.get("router", {}).get("routed_frames"), "run_peak_bytes": peak,
+                   "worker_peak_bytes": worker_peaks}
+            rows[key]["open_loop"].append(row)
+            print(f"fleet {key} open loop {run + 1} ({FLEET_RATE_HZ:g} Hz x {len(bundle.streams)} streams, "
+                  f"{FLEET_HORIZON_S:g} s, {FLEET_DEADLINE_MS:g} ms deadline): {rep['frames']} of {adm['offered']} "
+                  f"offered served ({adm['dropped']} dropped) in {rep['wall_s']:.2f} s: {rep['aggregate_fps']:.2f} "
+                  f"frames/s, goodput {rep['goodput_fps']:.2f} frames/s, p50 {rep['latency_p50_ms']:.2f} ms, p99 "
+                  f"{rep['latency_p99_ms']:.2f} ms, host-issue share {json.dumps(row['issue_share'])}, blocked "
+                  f"{100 * row['blocked_share']:.2f}% of the tick wall, routed {row['router']}, peak allocated over "
+                  f"the run {peak / 2**20:.1f} MiB in this process"
+                  + (f", per worker {[round(v / 2**20, 1) for v in worker_peaks]} MiB" if proc else "")
+                  + f" | {smi}")
+
+        step(f"{key} open loops")
+        if key == "R2":
+            rows["R2_swap"] = fleet_swap_check(torch, bundle, core_plan, drive, host, worst_diff, ref, F)
+            step("R2 swap check")
+        if key == "W2":
+            rows["W2_kill"] = fleet_kill_check(torch, bundle, drive, F)
+            step("W2 kill check")
+        bundle.close()
+        del bundle, server, outs
+        step(f"{key} closed")
+
+    base = ["--mode", "streams", "--impl", "pallas", "--img", str(IMG), "--base", str(BASE), "--streams", "2",
+            "--yolo-streams", "1", "--frames", "4", "--workers", "2"]
+    bundle, rep, seconds = _launch(torch, launch_serve.main, base)
+    if (rep["workers"], rep["alive_workers"], rep["frames"], rep["worker_failures"]) != (2, [0, 1], 12, []):
+        raise AssertionError(f"launcher --workers 2: {rep['workers']} workers, alive {rep['alive_workers']}, "
+                             f"{rep['frames']} frames, failures {rep['worker_failures']}")
+    if any(h.process is not None for h in bundle.server.handles):
+        raise AssertionError("launcher --workers 2 left a worker running")
+    rows["launcher_workers"] = {"frames": rep["frames"], "frames_per_s": rep["aggregate_fps"],
+                                "routed": rep["router"]["routed_frames"], "seconds": seconds}
+    print(f"launcher --workers 2: {rep['frames']} frames, {rep['aggregate_fps']:.2f} frames/s, routed "
+          f"{rep['router']['routed_frames']}, workers stopped, {seconds:.1f} s | {smi}")
+    del bundle
+    return rows
+
+
+def fleet_swap_check(torch, bundle, core_plan, drive, host, worst_diff, ref, F):
+    """The graph runners the replicas share, on the card: replica A swaps
+    to the ``max_cuts=2`` plan and serves frame 0 of every stream again,
+    then replica B does. Returns the rows."""
+    fleet = bundle.server
+    a, b = (s.executor for s in fleet.servers)
+    alt = core_plan([m.graph for m in bundle.models], list(bundle.engines), max_cuts=2, impl="pallas")
+    old = [{(s.lo, s.hi, s.impl) for s in segs} for segs in bundle.plan.segments]
+    new = [{(s.lo, s.hi, s.impl) for s in segs} for segs in alt.segments]
+    if old == new:
+        raise AssertionError("the max_cuts=2 plan runs the same spans")
+
+    def held(ex, mi):
+        return {k[1:4] for k in ex._seg_fns if k[0] == mi}
+
+    def state():
+        return [{"runners": sorted(m.__dict__.get("_graph_runners", {})), "graphs": len(m.captured_graphs())}
+                for m in bundle.models]
+
+    streams_a = {st.cuda_stream for st in a._engine_streams or ()}
+    before = state()
+    a.swap_plan(alt)
+    drive(fleet, bundle.streams, 0, 1)
+    mid = state()
+    for mi, m in enumerate(bundle.models):
+        cache = m.__dict__.get("_graph_runners", {})
+        if set(cache) != held(a, mi) | held(b, mi):
+            raise AssertionError(f"model {mi} after A's swap: runners {sorted(cache)}, held by A {held(a, mi)}, B "
+                                 f"{held(b, mi)}")
+        for span in old[mi] - new[mi]:
+            r = cache.get(span)
+            if r is None:
+                continue
+            if a in r.holders or any(k[1] in streams_a for k in r.graphs):
+                raise AssertionError(f"model {mi} span {span}: still held by A or with graphs on A's streams")
+    b.swap_plan(alt)
+    outs = drive(fleet, bundle.streams, 0, 1)
+    after = state()
+    for mi, m in enumerate(bundle.models):
+        cache = m.__dict__.get("_graph_runners", {})
+        if set(cache) != held(a, mi) | held(b, mi) or set(cache) & (old[mi] - new[mi]):
+            raise AssertionError(f"model {mi} after both swaps: runners {sorted(cache)}, want the live {new[mi]}")
+        live = sum(len(r.graphs) for r in cache.values())
+        if len(m.captured_graphs()) != live:
+            raise AssertionError(f"model {mi}: {len(m.captured_graphs())} graphs, {live} in the live runners")
+    # the last two outputs of each stream: frame 0 again, after each swap
+    got = {s.name: host(outs, s.name, 2) for s in bundle.streams}
+    worst = worst_diff(got, {n: v[:1] * 2 for n, v in ref.items()})
+    if worst:
+        raise AssertionError(f"after the swaps the outputs differ from the single server's by up to {worst:.3e}")
+    print(f"fleet R2 swap: runners and graphs per model before {before}, after A's swap {mid}, after both {after}; "
+          f"outputs after the swaps bit-exact against the single server")
+    return {"before": before, "after_a": mid, "after_both": after}
+
+
+def _pipe_sink(conn, n):
+    conn.send_bytes(b"ready")
+    for _ in range(n):
+        conn.recv_bytes()
+        conn.send_bytes(b"done")
+
+
+def host_pipe_rates(sizes_mb=(16, 128)):
+    """MB/s of one message of each size through a ``multiprocessing`` pipe
+    to a spawned process (the transport of the workers' RPCs), each timed
+    from the send to the reply that it arrived. ``Connection`` reads a
+    message with ``os.read(fd, remaining)``, which allocates the whole
+    remainder for every chunk the pipe yields, so the rate falls with the
+    message's size where allocations are dear."""
+    from multiprocessing import get_context
+
+    ctx = get_context("spawn")
+    a, b = ctx.Pipe()
+    p = ctx.Process(target=_pipe_sink, args=(b, len(sizes_mb)))
+    p.start()
+    a.recv_bytes()
+    rates = {}
+    for mb in sizes_mb:
+        payload = bytes(mb * 2**20)
+        t0 = time.perf_counter()
+        a.send_bytes(payload)
+        a.recv_bytes()
+        rates[mb] = mb * 2**20 / 1e6 / (time.perf_counter() - t0)
+    p.join(timeout=30)
+    return rates
+
+
+def fleet_kill_check(torch, bundle, drive, F):
+    """The 2-worker fleet's outputs drained (through shared memory) and
+    timed; then worker 1 killed: its streams re-route to worker 0, which
+    serves them. Returns the row."""
+    server = bundle.server
+    t0 = time.perf_counter()
+    kept = server.drain()
+    drain_s = time.perf_counter() - t0
+    drained = sum(t.numel() * t.element_size() for v in kept.values() for o in v for t in _leaves_of(o))
+    rates = host_pipe_rates()
+    print(f"fleet W2 drain: {sum(len(v) for v in kept.values())} outputs, {drained / 1e6:.1f} MB, in {drain_s:.2f} s "
+          f"({drained / 1e6 / drain_s:.1f} MB/s through shared memory); one pipe message to a spawned process: "
+          + ", ".join(f"{mb} MB at {r:.1f} MB/s" for mb, r in rates.items()))
+    del kept
+    victim = 1
+    moved = sorted(n for n, w in server.router.assignments.items() if w == victim)
+    if not moved:
+        raise AssertionError("the router left worker 1 idle")
+    proc = server.handles[victim].process
+    proc.kill()
+    proc.join(timeout=30.0)
+    if proc.is_alive():
+        raise AssertionError(f"worker {victim} survived its kill")
+    before = {n: len(v) for n, v in server.drain().items()}
+    outs = drive(server, bundle.streams, F, 2)
+    rep = server.report()
+    if rep["alive_workers"] != [0] or server.router.summary()["evicted"] != [victim]:
+        raise AssertionError(f"kill: alive {rep['alive_workers']}, router {server.router.summary()}")
+    (failure,) = [f for f in rep["worker_failures"] if f["worker"] == victim]
+    served = {n: len(outs.get(n, [])) - before.get(n, 0) for n in moved}
+    if failure["migrated_streams"] != moved or any(v != 2 for v in served.values()):
+        raise AssertionError(f"kill: migrated {failure['migrated_streams']} (want {moved}), served after it {served}")
+    for n in moved:
+        mi = next(s.model_index for s in bundle.streams if s.name == n)
+        for t, o in zip((F, F + 1), outs[n][-2:]):
+            want_out = bundle.models[mi].run_all(bundle.frame_for(n, t))
+            for a_, b_ in zip(_leaves_of(o), _leaves_of(want_out)):
+                torch.testing.assert_close(a_, b_.cpu(), atol=5e-3, rtol=1e-2)
+    print(f"fleet W2 kill: worker {victim} killed, evicted on '{failure['reason'][:60]}', streams {moved} served by "
+          f"worker 0 ({served} frames after the kill, within the served pin of run_all)")
+    return {"migrated": moved, "served_after": served, "reason": failure["reason"], "drain_s": drain_s,
+            "drained_bytes": drained, "pipe_mb_per_s": rates}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--json", help="also write every measured row to this file")
@@ -1865,6 +2209,9 @@ def main() -> int:
     print(f"-- the launcher: repro_torch.launch.serve.main in this process (img {IMG}, base {BASE})")
     launcher_rows = launcher_phase(torch, smi, dev, ops, want)
     lap("launcher")
+    print(f"-- the fleets: replicas and worker processes (img {IMG}, base {BASE}, impl pallas, CUDA graphs)")
+    fleet_rows = fleet_phase(torch, smi, dev, ops, want)
+    lap("fleets")
 
     print("-- deconv2d vs its plain version, shape classes (ms on the card, CUDA events)")
     class_err = {}
@@ -2015,6 +2362,7 @@ def main() -> int:
              "bf16_forward": {"launches": bf16_launches, "checks": bf16_checks},
              "hymba_prefill": prefill_rows, "lm_per_prefill": lm_tot, "hymba_decode": decode_row,
              "flash_ptxas": flash_tc, "launcher": launcher_rows, "served_ab": served_rows,
+             "fleets": fleet_rows,
              "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -3,12 +3,17 @@
 The paper schedules across the Jetson's GPU and DLA. The cost model and
 the HaX-CoNN scheduler consume only this abstraction. On one CUDA card the
 two engines of a plan run as two CUDA streams (``serve.executor``); the
-engine's constraint set stays a planning constraint.
+engine's constraint set stays a planning constraint. ``DevicePool`` slices
+the host's devices into the engine groups of the serving fleets.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+import torch
+
+from ..nn.module import tree_map
 
 # ---- hardware constants -------------------------------------------------------
 # Jetson AGX Orin engine efficiencies, calibrated so that the cost model
@@ -88,3 +93,80 @@ def jetson_orin_engines(constraints_dla=(), constraints_gpu=()):
         "DLA", 1, JETSON_ORIN_DLA_FLOPS, JETSON_ORIN_DLA_BW, JETSON_XFER_BW, tuple(constraints_dla)
     )
     return gpu, dla
+
+
+class DevicePool:
+    """Devices sliced into per-replica engine groups.
+
+    The fleet (``repro_torch.serve.fleet``) replicates the planned pipeline
+    R times; each replica gets a slice of the pool and an engine tuple
+    bound to that slice. With several devices the slices are disjoint
+    (``D // R`` devices each, round-robin reuse once R exceeds D); on a
+    one-device pool (one CUDA card, or the CPU) every replica binds the
+    virtual 2-engine GPU/DLA pair to that device, so the whole fleet still
+    runs. Placement is exposed as per-engine ``place_fns`` (closures moving
+    each state leaf with ``.to(device, non_blocking=True)``) in the shape
+    ``StreamExecutor`` consumes; on a one-device pool they are the identity
+    so the hot path pays nothing.
+
+    ``devices`` defaults to every CUDA card (``torch.device("cuda", i)`` for
+    ``i < torch.cuda.device_count()``); pass a list to pool others (the CPU
+    tests pass ``[torch.device("cpu")]``).
+    """
+
+    def __init__(self, engines, devices=None):
+        if devices is None:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        if not devices:
+            raise ValueError("DevicePool needs at least one device (no CUDA card: pass devices=)")
+        self.devices = list(devices)
+        self.engines = tuple(engines)
+        if not self.engines:
+            raise ValueError("DevicePool needs at least one engine spec")
+
+    @classmethod
+    def discover(cls, engines=None, constraints_dla=(), constraints_gpu=(), devices=None):
+        """Pool over the CUDA cards (or ``devices``); defaults to the
+        Jetson-analogue (DLA, GPU) virtual pair in planning order when no
+        specs are given."""
+        if engines is None:
+            gpu, dla = jetson_orin_engines(constraints_dla, constraints_gpu)
+            engines = (dla, gpu)
+        return cls(engines, devices=devices)
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.devices)
+
+    def replica_devices(self, replica: int, n_replicas: int) -> list:
+        """The device slice backing one replica (wraps when R > D)."""
+        if replica < 0 or replica >= n_replicas:
+            raise ValueError(f"replica {replica} out of range for {n_replicas}")
+        per = max(1, len(self.devices) // max(1, n_replicas))
+        return [self.devices[(replica * per + j) % len(self.devices)] for j in range(per)]
+
+    def worker_pool(self, worker: int, n_workers: int) -> "DevicePool":
+        """A sub-pool over one worker *process*'s device slice.
+
+        The multi-process fleet (``repro_torch.serve.multiproc``) spawns R
+        workers; each builds its replica group over its share of the pool.
+        Slicing reuses the replica round-robin (wraps when R exceeds D), so
+        on a one-card host every worker sees the one card and placement
+        stays the identity."""
+        return DevicePool(self.engines, devices=self.replica_devices(worker, n_workers))
+
+    def engine_slice(self, replica: int, n_replicas: int) -> tuple[EngineSpec, ...]:
+        """The pool's engine specs bound to this replica's devices."""
+        devs = self.replica_devices(replica, n_replicas)
+        return tuple(e.bound(devs[i % len(devs)]) for i, e in enumerate(self.engines))
+
+    def place_fns(self, replica: int, n_replicas: int) -> list:
+        """Per-engine state-placement closures for ``StreamExecutor``."""
+        if len(self.devices) == 1:
+            # one device: a move would be a no-op round trip
+            return [lambda state: state for _ in self.engines]
+        fns = []
+        for e in self.engine_slice(replica, n_replicas):
+            dev = e.device
+            fns.append(lambda state, dev=dev: tree_map(lambda x: x.to(dev, non_blocking=True), state))
+        return fns

@@ -10,32 +10,50 @@ with its ``pallas_fused`` variant (the fused CUDA serving kernels).
 jitted segments: a ``CapturedSegment`` runner that captures the segment in
 a CUDA graph once per state structure and replays it (one launch of the
 whole segment instead of one per op).
+
+``TwoModelPipeline`` executes a HaX-CoNN swap schedule in steady state with
+double buffering (the paper's DeepStream analogue):
+
+  tick t:  E_con runs A[0:pa) of frame t      E_flex runs B[0:pb) of frame t
+           E_con runs B[pb:)  of frame t-1    E_flex runs A[pa:)  of frame t-1
+
+On one card the two engines are two CUDA streams; ``place_fn`` hooks the
+engine-boundary transfers (``.to(device, non_blocking=True)`` across
+devices, ``submesh_placers``).
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Callable
 
 import torch
 
 from ..kernels import graph_launches, launch_counters
-from ..nn.module import tree_def, tree_leaves, tree_unflatten
+from ..nn.module import tree_def, tree_leaves, tree_map, tree_unflatten
 from .graph import LayerGraph
 
-# CUDA-graph memory pools by (device, CUDA stream) and the side stream each
-# device captures on. Graphs that share a pool may reuse each other's
-# intermediate memory, which is safe only while they never run at once;
-# every graph replays on the stream it was captured for, so the graphs of
-# one pool are ordered by that stream.
-_POOLS: dict[tuple[int, int], Any] = {}
+# CUDA-graph memory pools by (device, CUDA stream), each with the graphs
+# captured into it, and the side stream each device captures on. Graphs
+# that share a pool may reuse each other's intermediate memory, which is
+# safe only while they never run at once; every graph replays on the
+# stream it was captured for, so the graphs of one pool are ordered by
+# that stream.
+_POOLS: dict[tuple[int, int], tuple[Any, "weakref.WeakSet[CapturedGraph]"]] = {}
 _CAPTURE_STREAMS: dict[int, Any] = {}
 
 
-def _graph_pool(stream) -> Any:
+def _graph_pool(stream) -> tuple[Any, "weakref.WeakSet[CapturedGraph]"]:
+    """The stream's pool handle and the set of live graphs captured into
+    it. Once every graph of a pool is gone the caching allocator releases
+    the pool and refuses a capture into it, so the stream starts a new
+    one (a server that dropped all of a stream's graphs after a re-plan
+    captures again)."""
     key = (stream.device.index, stream.cuda_stream)
-    if key not in _POOLS:
-        _POOLS[key] = torch.cuda.graph_pool_handle()
-    return _POOLS[key]
+    entry = _POOLS.get(key)
+    if entry is None or not entry[1]:
+        entry = _POOLS[key] = (torch.cuda.graph_pool_handle(), weakref.WeakSet())
+    return entry
 
 
 def _capture_stream(device: torch.device):
@@ -44,7 +62,7 @@ def _capture_stream(device: torch.device):
     return _CAPTURE_STREAMS[device.index]
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)  # identity: a pool tracks its graphs in a WeakSet
 class CapturedGraph:
     """One segment captured for one state structure, params and stream."""
 
@@ -85,6 +103,10 @@ class CapturedSegment:
         self.name = name
         self.fn = fn
         self.graphs: dict[tuple, CapturedGraph] = {}
+        # the executors that run this span (``StagedModel.jitted_segment_fn``
+        # with a holder): the runner leaves the model's cache only when the
+        # last of them retires the span
+        self.holders = weakref.WeakSet()
 
     def __call__(self, params, state):
         leaves = tree_leaves(state)
@@ -121,13 +143,14 @@ class CapturedSegment:
         counters = launch_counters()
         before = {pkg: dict(c) for pkg, c in counters.items()}
         graph = torch.cuda.CUDAGraph()
+        pool, pool_graphs = _graph_pool(stream)
         # capture_begin/end rather than torch.cuda.graph, whose entry also
         # empties the allocator's cache: every later allocation would pay
         # a cudaMalloc again, on the hot path when a capture happens there
         torch.cuda.synchronize(leaves[0].device)
         try:
             with torch.cuda.stream(side):
-                graph.capture_begin(pool=_graph_pool(stream), capture_error_mode="thread_local")
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
                     static_out = self.fn(params, static_state)
                 finally:
@@ -147,7 +170,9 @@ class CapturedSegment:
         stream.wait_stream(side)
         ids = {id(t): i for i, t in enumerate(static_in)}
         alias = [ids.get(id(o)) for o in tree_leaves(static_out)]
-        return CapturedGraph(graph, params, static_in, static_out, alias, launched)
+        captured = CapturedGraph(graph, params, static_in, static_out, alias, launched)
+        pool_graphs.add(captured)
+        return captured
 
 
 @dataclasses.dataclass
@@ -246,25 +271,46 @@ class StagedModel:
 
         return f
 
-    def jitted_segment_fn(self, lo, hi, impl: str = "xla") -> "CapturedSegment":
+    def jitted_segment_fn(self, lo, hi, impl: str = "xla", holder=None) -> "CapturedSegment":
         """The captured form of ``segment_fn`` (a ``CapturedSegment``),
         cached on the model so every executor over the same span shares
-        its CUDA graphs, one per state structure (so one per batch
-        bucket)."""
+        its CUDA graphs, one per state structure and stream (so one per
+        batch bucket). ``holder`` (an executor) takes a reference to the
+        runner, which ``drop_graphs`` gives back."""
         cache = self.__dict__.setdefault("_graph_runners", {})
         key = (lo, hi, impl)
         if key not in cache:
             cache[key] = CapturedSegment(f"{self.name}[{lo}:{hi}) {impl}", self.segment_fn(lo, hi, impl))
+        if holder is not None:
+            cache[key].holders.add(holder)
         return cache[key]
 
-    def drop_graphs(self, lo, hi, impl: str = "xla") -> int:
-        """Forget the captured runner of ``[lo, hi)`` under ``impl`` and its
-        graphs (their pool memory returns to the stream's pool, for later
-        captures); returns how many graphs went. The caller makes sure no
-        replay of them is still on the card. An executor that runs the
-        span again captures it anew."""
-        runner = self.__dict__.get("_graph_runners", {}).pop((lo, hi, impl), None)
-        return len(runner.graphs) if runner is not None else 0
+    def drop_graphs(self, lo, hi, impl: str = "xla", holder=None, streams=()) -> int:
+        """Give back ``holder``'s reference to the captured runner of
+        ``[lo, hi)`` under ``impl``: the graphs captured on ``streams`` (the
+        holder's CUDA streams, as ``cuda_stream`` handles) go, and the
+        runner with all its graphs leaves the model's cache once no other
+        holder runs the span. Without a holder the runner goes whatever
+        holds it. The freed graphs' memory returns to their stream's pool
+        for later captures (with the pool's last graph, to the caching
+        allocator: the stream's next capture starts a new pool). Returns
+        how many graphs went. The caller makes sure no replay of them is
+        still on the card; an executor that runs the span again takes the
+        runner anew (captured anew if it went)."""
+        cache = self.__dict__.get("_graph_runners", {})
+        runner = cache.get((lo, hi, impl))
+        if runner is None:
+            return 0
+        if holder is not None:
+            runner.holders.discard(holder)
+        if holder is None or not runner.holders:
+            del cache[(lo, hi, impl)]
+            return len(runner.graphs)
+        streams = set(streams)
+        gone = [k for k in runner.graphs if k[1] in streams]
+        for k in gone:
+            del runner.graphs[k]
+        return len(gone)
 
     def captured_graphs(self) -> list[tuple[str, CapturedGraph]]:
         """Every graph this model's segment runners captured, with the
@@ -409,3 +455,85 @@ class TickLog:
     tick: int
     engine: str
     work: str
+
+
+class TwoModelPipeline:
+    """Steady-state double-buffered execution of a HaX-CoNN schedule.
+
+    Thin wrapper over the generic ``serve.StreamExecutor``: the two-model
+    swap schedule is expressed as two counter-phased routes (A: con then
+    flex, B: flex then con) with one stream per model, which the executor
+    runs tick-for-tick as the original phase-1/phase-2 loop did.
+    """
+
+    def __init__(
+        self,
+        model_a: StagedModel,
+        model_b: StagedModel,
+        plan,
+        place_con: Callable | None = None,
+        place_flex: Callable | None = None,
+    ):
+        from .plan_ir import PlanIR
+
+        self.a, self.b = model_a, model_b
+        # accept the unified entry point's PlanIR or a HaxConnResult
+        ir = plan if isinstance(plan, PlanIR) else plan.ir
+        self.pa, self.pb = ir.partitions
+        self.plan = ir
+        self.place_con = place_con or (lambda x: x)
+        self.place_flex = place_flex or (lambda x: x)
+        self.log: list[TickLog] = []
+
+    def run_stream(self, frames_a, frames_b):
+        """frames_*: lists of model inputs (equal length). Returns
+        (outputs_a, outputs_b) in input order + populates ``self.log``."""
+        from ..serve.executor import StreamExecutor  # lazy: serve imports this module
+        from ..serve.streams import StreamSpec
+        from .plan_ir import make_plan_ir
+
+        assert len(frames_a) == len(frames_b)
+        la, lb = self.a.n_layers, self.b.n_layers
+        # the scheduler's typed IR drives the executor; rebuild it from the
+        # (possibly caller-overridden) partition points
+        ir = self.plan
+        if ir is None or ir.partitions != [self.pa, self.pb]:
+            ir = make_plan_ir(
+                (self.a.name, self.b.name),
+                ("con", "flex"),
+                [[(0, 0, self.pa), (1, self.pa, la)], [(1, 0, self.pb), (0, self.pb, lb)]],
+                kind="haxconn",
+            )
+        ex = StreamExecutor(
+            [self.a, self.b],
+            ir,
+            [StreamSpec("A", 0), StreamSpec("B", 1)],
+            max_queue=max(1, len(frames_a)),
+            place_fns=[self.place_con, self.place_flex],
+            engine_names=["con", "flex"],
+            model_labels=["A", "B"],
+            # the two-model pipeline is the paper-faithful correctness
+            # harness: keep the eager op sequence (bit-exact vs run_all)
+            jit_segments=False,
+        )
+        for fa, fb in zip(frames_a, frames_b):
+            ok = ex.submit(0, fa) and ex.submit(1, fb)
+            if not ok:
+                raise RuntimeError("pipeline frame queue refused a frame (depth mis-sized)")
+        outs = ex.run_until_drained()
+        self.log = ex.log
+        return outs["A"], outs["B"]
+
+
+def submesh_placers(mesh_devices, n_con: int):
+    """Split a flat device list into (constrained, flexible) placement fns:
+    each moves every state leaf to its group's first device."""
+    con, flex = list(mesh_devices[:n_con]), list(mesh_devices[n_con:])
+
+    def place(devs):
+        def f(state):
+            return tree_map(lambda x: x.to(devs[0], non_blocking=True), state)
+
+        return f
+
+    return place(con or flex), place(flex or con)

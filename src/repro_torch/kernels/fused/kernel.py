@@ -49,6 +49,12 @@ def build() -> dict:
     return _build.build(_SRC, _BUILD_DIR)
 
 
+def built() -> bool:
+    """Whether this source's library is already built (so ``library()``
+    only loads it)."""
+    return _build.library_path(_SRC, _BUILD_DIR).exists()
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     lib = _build.load(_SRC, _BUILD_DIR)

@@ -19,14 +19,16 @@ names another device.
   PYTHONPATH=src python -m repro_torch.launch.serve --mode streams \\
       --traffic poisson --rate 30 --deadline-ms 50 --duration 2 --admission
   PYTHONPATH=src python -m repro_torch.launch.serve --mode streams --device cpu --img 32 --frames 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode streams --replicas 2 \\
+      --traffic poisson --rate 30 --duration 2 --admission   # replicated fleet
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode streams --workers 2 \\
+      --traffic poisson --rate 30 --duration 2   # multi-process fleet (IPC router)
 
 ``--mode lm`` takes ``--arch hymba_1_5b`` (the one LM family ported so
 far); other architectures raise from ``configs.get_arch`` until their
-family is ported. ``--replicas > 1`` and ``--workers > 0`` raise: the
-fleets are queued in ROADMAP.md (module queue item 2). ``main(argv)``
-takes the arguments as a list, so a program can drive the launcher in its
-own process: streams mode returns the (closed) ``ServerBundle``, lm mode
-the generated tokens.
+family is ported. ``main(argv)`` takes the arguments as a list, so a
+program can drive the launcher in its own process: streams mode returns
+the (closed) ``ServerBundle``, lm mode the generated tokens.
 """
 from __future__ import annotations
 
@@ -72,7 +74,9 @@ def run_streams(args):
         n_pix=args.streams,
         n_yolo=args.yolo_streams,
         norm=args.norm,
-        cost=provider,
+        # worker processes rebuild the provider from its name (the build
+        # spec crosses the process boundary as JSON)
+        cost=args.cost if args.workers else provider,
         granularity=args.granularity,
         stride=args.planner_stride,
         max_cuts="auto" if args.max_cuts == "auto" else int(args.max_cuts),
@@ -94,6 +98,7 @@ def run_streams(args):
         replan=replan_cfg if replan_cfg is not None else False,
         calibration_path=args.calibration_cache,
         replicas=args.replicas,
+        router_seed=args.router_seed,
         workers=args.workers,
         device=device,
     )
@@ -113,6 +118,17 @@ def run_streams(args):
         print(
             f"[serve] continuous batching: max_batch={args.max_batch} "
             f"hold={args.batch_hold_ms}ms (norm={args.norm}; batch-norm models never coalesce)"
+        )
+    if args.workers:
+        print(
+            f"[serve] fleet: {args.workers} worker processes "
+            f"(pids {[h.process.pid for h in bundle.server.handles]}), "
+            f"router seed {args.router_seed}"
+        )
+    elif args.replicas > 1:
+        print(
+            f"[serve] fleet: {args.replicas} replicas over "
+            f"{bundle.server.pool.n_devices} device(s), router seed {args.router_seed}"
         )
     if args.impl != "xla":
         print(f"[serve] impl={args.impl} bindings={plan.impl_bindings()}")
@@ -146,7 +162,11 @@ def run_streams(args):
         server.drain()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    if args.calibration_cache and replanner is not None and replanner.online.snapshot():
+    if args.workers:
+        # the multi-process fleet checkpoints its merged calibration itself
+        # (sync_calibration writes --calibration-cache atomically)
+        pass
+    elif args.calibration_cache and replanner is not None and replanner.online.snapshot():
         # persist the learned per-engine scales so the next process
         # warm-starts its calibration instead of re-learning it
         replanner.online.save_calibration(args.calibration_cache)
@@ -266,15 +286,16 @@ def main(argv=None):
         "--replicas",
         type=int,
         default=1,
-        help="replicated serving pipelines over the device pool (not ported yet: > 1 raises)",
+        help="replicated serving pipelines in this process, behind the sticky load-aware fleet router",
     )
     ap.add_argument(
         "--workers",
         type=int,
         default=0,
-        help="multi-process fleet of this many worker processes (not ported yet: > 0 raises)",
+        help="multi-process fleet: this many worker processes behind the IPC router "
+        "(mutually exclusive with --replicas)",
     )
-    ap.add_argument("--router-seed", type=int, default=0, help="fleet router tie-break seed (for the fleets)")
+    ap.add_argument("--router-seed", type=int, default=0, help="fleet router tie-break seed")
     ap.add_argument("--dispatch", choices=("overlapped", "serialized"), default="overlapped")
     ap.add_argument("--norm", choices=("batch", "instance", "group"), default="batch")
     ap.add_argument(

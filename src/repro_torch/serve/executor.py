@@ -489,8 +489,9 @@ class StreamExecutor:
         model = self.models[mi]
         if self.jit_segments:
             # cached on the model: executors over the same span share its
-            # captured graphs (per state structure and stream)
-            return model.jitted_segment_fn(lo, hi, impl=impl)
+            # captured runner (one graph per state structure and stream),
+            # each holding a reference to it until it retires the span
+            return model.jitted_segment_fn(lo, hi, impl=impl, holder=self)
         return model.segment_fn(lo, hi, impl=impl)
 
     def _degraded_route(self, mi: int) -> tuple[PlanSegment, ...]:
@@ -525,14 +526,18 @@ class StreamExecutor:
         the plan, a degraded route nor an in-flight flight still runs. A
         completed flight's last segment was waited on, and it waited on
         the flight's earlier ones, so no replay of a dropped graph is still
-        on the card."""
+        on the card. Runners are shared with the other executors over the
+        same models (fleet replicas): this one gives back its reference and
+        the graphs captured on its own streams, and the runner leaves the
+        model's cache when no executor runs the span any more."""
         live = _spans(self.plan.segments) | _spans(self._degraded_routes.values())
         live |= _spans(f.route for f in self.in_flight)
         for mi, lo, hi, impl in self._retired - live:
             for key in [k for k in self._seg_fns if k[:4] == (mi, lo, hi, impl)]:
                 del self._seg_fns[key]
             if self.jit_segments:
-                self.models[mi].drop_graphs(lo, hi, impl)
+                streams = [st.cuda_stream for st in self._engine_streams or ()]
+                self.models[mi].drop_graphs(lo, hi, impl, holder=self, streams=streams)
         self._retired &= live
 
     def _segment_runner(self, mi: int, seg: PlanSegment, bucket: int = 1) -> Callable:

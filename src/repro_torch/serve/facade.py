@@ -12,8 +12,9 @@ device, and returns a ``ServerBundle`` holding each layer:
 
 It runs on the CUDA card unless ``device`` names another; each engine of
 the plan is one CUDA stream there, and each planned segment a captured
-CUDA graph (``jit_segments``). Fleets (``replicas``/``workers``) are not
-ported yet and raise.
+CUDA graph (``jit_segments``). ``replicas`` replicates the planned pipeline
+in this process (``FleetServer``), ``workers`` in worker processes
+(``ProcFleetServer``), each behind the sticky load-aware ``FleetRouter``.
 """
 from __future__ import annotations
 
@@ -25,11 +26,14 @@ from typing import Any, Callable
 import torch
 
 from ..core.api import plan as core_plan
-from ..core.cost_model import CostProvider, make_cost_provider
+from ..core.cost_model import CostProvider, OnlineCost, make_cost_provider
+from ..core.engine import DevicePool
 from ..core.plan_ir import PlanIR
 from .admission import AdmissionConfig
 from .batching import BatchConfig
 from .demo import _build_pix_yolo_models, merge_flags_for, resolve_device
+from .fleet import FleetServer
+from .multiproc import ProcFleetServer
 from .replanner import ReplanConfig, Replanner
 from .server import MultiStreamServer
 from .streams import StreamSpec
@@ -49,7 +53,7 @@ class ServerBundle:
     streams: list[StreamSpec]
     engines: tuple  # planning order: (dla, gpu)
     provider: CostProvider
-    server: MultiStreamServer
+    server: MultiStreamServer | FleetServer | ProcFleetServer
     replanner: Replanner | None
     admission: AdmissionConfig | None
     traffic: dict[str, TrafficConfig]
@@ -96,8 +100,11 @@ class ServerBundle:
         return self.server.report()
 
     def close(self):
-        """Release server resources (a no-op for the in-process server;
-        kept for the fleets' context-manager protocol)."""
+        """Release server resources — shuts down the worker processes of a
+        multi-process fleet; a no-op for in-process servers."""
+        close = getattr(self.server, "close", None)
+        if close is not None:
+            close()
 
     def __enter__(self) -> "ServerBundle":
         return self
@@ -126,6 +133,21 @@ def _normalize_slos(slos, deadline_ms, streams: list[StreamSpec]):
             tier = 0 if s.model_index == 1 else 1
             out.append(SLOPolicy(deadline_ms=deadline_ms, tier=tier, name=f"{s.name}-slo"))
     return out
+
+
+def _warm_start(target, path: str | None) -> None:
+    """Load the calibration JSON at ``path`` into ``target`` (a
+    ``Replanner``, which also baselines its drift detector on it, or an
+    ``OnlineCost``) when the file exists and ``target`` has no scales yet.
+    Scales learned over another base provider are in other units: they
+    warn and are not loaded, and the re-planner calibrates live."""
+    online = getattr(target, "online", target)
+    if not path or not os.path.exists(path) or online.snapshot():
+        return
+    try:
+        target.load_calibration(path)
+    except ValueError as e:
+        warnings.warn(f"calibration {path} not applicable, re-calibrating: {e}")
 
 
 def _normalize_traffic(traffic, streams: list[StreamSpec]) -> dict[str, TrafficConfig]:
@@ -178,9 +200,12 @@ def build_server(
     # online re-planning
     replan: bool | ReplanConfig = False,
     calibration_path: str | None = None,
-    # fleets (not ported yet)
+    # fleet replication
     replicas: int = 1,
+    router_seed: int = 0,
+    # multi-process fleet
     workers: int = 0,
+    calib_sync_every: int = 16,
     # placement
     device: str | torch.device | None = None,
 ) -> ServerBundle:
@@ -209,25 +234,52 @@ def build_server(
     has none yet (a calibration learned over another base provider warns
     and is not loaded: the re-planner calibrates live).
 
-    ``replicas > 1`` and ``workers > 0`` raise ``NotImplementedError``:
-    ``DevicePool`` and the fleets are queued in ROADMAP.md."""
-    if replicas != 1:
-        raise NotImplementedError(
-            "replicas > 1 needs DevicePool and serve.fleet (queued in ROADMAP.md, module queue item 2)"
+    ``replicas > 1`` returns the bundle over a ``FleetServer``: R
+    replicated (plan, executor) groups over a ``DevicePool`` on ``device``
+    behind a sticky load-aware ``FleetRouter`` seeded ``router_seed``. The
+    plan is solved once — over replica 0's engine slice, which is
+    value-identical to every other slice (only the device binding
+    differs) — and with ``replan`` each replica gets its own ``Replanner``,
+    all sharing one thread-safe ``OnlineCost`` so calibration is
+    fleet-wide.
+
+    ``workers > 0`` returns the bundle over a ``ProcFleetServer`` instead:
+    R worker *processes* on ``device``, each rebuilding the same replica
+    group from the serialized plan, behind the same sticky router over IPC
+    (``serve.multiproc``). Mutually exclusive with ``replicas > 1`` — one
+    replica group per worker process. ``cost`` must then be a provider
+    name (the build spec crosses the process boundary as JSON), and with
+    ``replan`` on the workers' calibrations sync fleet-wide every
+    ``calib_sync_every`` front ticks, checkpointing atomically to
+    ``calibration_path`` (which also warm-starts workers on spawn). Call
+    ``bundle.close()`` (or use the bundle as a context manager) to shut
+    the workers down."""
+    if workers and replicas > 1:
+        raise ValueError(
+            "workers and replicas are mutually exclusive: a multi-process fleet "
+            "hosts one replica group per worker process"
         )
-    if workers:
-        raise NotImplementedError(
-            "workers > 0 needs serve.multiproc (queued in ROADMAP.md, module queue item 2)"
+    if workers and not isinstance(cost, str):
+        raise ValueError(
+            "multi-process fleet needs a cost provider *name* (the build spec "
+            f"crosses the process boundary as JSON), got {type(cost).__name__}"
         )
+    if replicas < 1:
+        raise ValueError(f"replicas must be >= 1, got {replicas}")
     device = resolve_device(device)
     provider = cost if isinstance(cost, CostProvider) else make_cost_provider(cost)
     models, streams, (gpu, dla) = _build_pix_yolo_models(
         img=img, base=base, n_pix=n_pix, n_yolo=n_yolo, seed=seed, norm=norm,
         granularity=granularity, device=device,
     )
+    # in-process replicas share the models, so they share their device
+    pool = DevicePool((dla, gpu), devices=[device])
+    # one plan serves every replica: slice 0's bound engines plan exactly
+    # like the abstract pair (device binding is excluded from spec equality)
+    plan_engines = list(pool.engine_slice(0, replicas)) if replicas > 1 else [dla, gpu]
     plan_ir = core_plan(
         [m.graph for m in models],
-        [dla, gpu],
+        plan_engines,
         search=search,
         stride=stride,
         max_cuts=max_cuts,
@@ -248,32 +300,84 @@ def build_server(
     elif admission is False:
         admission = None
     replanner = None
-    if replan:
+    replanners = None
+    if replan and not workers:
         config = replan if isinstance(replan, ReplanConfig) else None
-        replanner = Replanner(
-            [m.graph for m in models], [dla, gpu], config=config, base_provider=provider
+        graphs = [m.graph for m in models]
+        if replicas > 1:
+            # one shared OnlineCost: every replica's Replanner reuses the
+            # instance (thread-safe drain), so all replicas' segment
+            # observations feed a single fleet-wide calibration store
+            shared = provider if isinstance(provider, OnlineCost) else OnlineCost(base=provider)
+            _warm_start(shared, calibration_path)
+            replanners = [
+                Replanner(graphs, [dla, gpu], config=config, base_provider=shared) for _ in range(replicas)
+            ]
+            replanner = replanners[0]
+        else:
+            replanner = Replanner(graphs, [dla, gpu], config=config, base_provider=provider)
+            _warm_start(replanner, calibration_path)
+    if workers:
+        # workers rebuild their replanners in-process; the front only
+        # carries the serialized config (True -> worker-side default)
+        replan_payload = None
+        if replan:
+            replan_payload = dataclasses.asdict(replan) if isinstance(replan, ReplanConfig) else {}
+        server = ProcFleetServer(
+            plan_ir,
+            streams,
+            workers=workers,
+            build={
+                "img": img, "base": base, "n_pix": n_pix, "n_yolo": n_yolo,
+                "seed": seed, "norm": norm, "granularity": granularity, "device": str(device),
+            },
+            router_seed=router_seed,
+            max_queue=max_queue,
+            microbatch=microbatch,
+            merge_batches=merge_batches,
+            batching=batching,
+            dispatch=dispatch,
+            jit_segments=jit_segments,
+            admission=admission,
+            resolution_flexible=resolution_flexible,
+            cost=cost,
+            replan=replan_payload,
+            calibration_path=calibration_path,
+            calib_sync_every=calib_sync_every,
         )
-        if calibration_path and os.path.exists(calibration_path) and not replanner.online.snapshot():
-            try:
-                replanner.load_calibration(calibration_path)
-            except ValueError as e:
-                # scales learned over another base provider are in other
-                # units: calibrate live instead
-                warnings.warn(f"calibration {calibration_path} not applicable, re-calibrating: {e}")
-    server = MultiStreamServer(
-        models,
-        plan_ir,
-        streams,
-        max_queue=max_queue,
-        microbatch=microbatch,
-        merge_batches=merge_batches,
-        batching=batching,
-        dispatch=dispatch,
-        jit_segments=jit_segments,
-        replanner=replanner,
-        admission=admission,
-        resolution_flexible=resolution_flexible,
-    )
+    elif replicas > 1:
+        server = FleetServer(
+            models,
+            plan_ir,
+            streams,
+            replicas=replicas,
+            pool=pool,
+            router_seed=router_seed,
+            max_queue=max_queue,
+            microbatch=microbatch,
+            merge_batches=merge_batches,
+            batching=batching,
+            dispatch=dispatch,
+            jit_segments=jit_segments,
+            replanners=replanners,
+            admission=admission,
+            resolution_flexible=resolution_flexible,
+        )
+    else:
+        server = MultiStreamServer(
+            models,
+            plan_ir,
+            streams,
+            max_queue=max_queue,
+            microbatch=microbatch,
+            merge_batches=merge_batches,
+            batching=batching,
+            dispatch=dispatch,
+            jit_segments=jit_segments,
+            replanner=replanner,
+            admission=admission,
+            resolution_flexible=resolution_flexible,
+        )
     return ServerBundle(
         models=models,
         plan=plan_ir,
@@ -285,5 +389,7 @@ def build_server(
         admission=admission,
         traffic=_normalize_traffic(traffic, streams),
         img=img,
+        replicas=replicas,
+        workers=workers,
         device=device,
     )

@@ -78,6 +78,32 @@ def _toy(n_layers=6, device="cpu"):
                        init_state=lambda x: {"x": x}, finalize=lambda s: s["x"])
 
 
+@pytest.mark.cuda
+def test_card_capture_after_every_graph_of_a_stream_dropped():
+    """A swap after the server drained: the next tick drops the old route's
+    graphs, which leaves one engine's stream with none, before the new
+    route reaches that stream. Its capture takes a new pool (the caching
+    allocator refuses a capture into a pool whose graphs are all gone),
+    and every frame's output is right."""
+    _card()
+    sm = _toy(device="cuda")
+    ex = StreamExecutor([sm], make_plan_ir(("toy",), ("E0", "E1"), ROUTE_A), [StreamSpec("s0", 0)], max_queue=8)
+    frames = [torch.full((1, 64), float(t), device="cuda") for t in range(6)]
+    for x in frames[:2]:
+        assert ex.submit(0, x)
+    ex.run_until_drained()
+    ex.swap_plan(make_plan_ir(("toy",), ("E0", "E1"), ROUTE_B))
+    for x in frames[2:]:
+        assert ex.submit(0, x)
+    ex.run_until_drained()
+    assert {name for name, _ in sm.captured_graphs()} == {f"toy[{lo}:{hi}) xla" for _, lo, hi in ROUTE_B[0]}
+    want = list(frames)
+    for _ in range(6):
+        want = [w * 1.5 + 0.5 for w in want]
+    for got, w in zip(ex.outputs["s0"], want):
+        assert torch.equal(got, w)
+
+
 # a three-segment route swapped for a two-segment one that shares no span
 ROUTE_A = [[(0, 0, 2), (1, 2, 4), (0, 4, 6)]]
 ROUTE_B = [[(0, 0, 1), (1, 1, 6)]]
@@ -131,6 +157,27 @@ def test_drop_graphs_forgets_the_runner():
     assert sm.jitted_segment_fn(0, 2) is runner
     assert sm.drop_graphs(0, 2) == 0 and sm.drop_graphs(0, 2) == 0  # the CPU captured nothing
     assert sm.jitted_segment_fn(0, 2) is not runner
+
+
+def test_a_stream_whose_graphs_are_all_gone_takes_a_new_pool(monkeypatch):
+    """The pool bookkeeping of the captures: a stream keeps its pool while
+    a graph captured into it lives, and takes a new one once they are all
+    gone (the caching allocator refuses a capture into such a pool)."""
+    import types
+
+    from repro_torch.core import pipeline
+
+    handles = iter(range(100))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: next(handles))
+    monkeypatch.setattr(pipeline, "_POOLS", {})
+    stream = types.SimpleNamespace(device=torch.device("cpu"), cuda_stream=7)
+    pool, graphs = pipeline._graph_pool(stream)
+    g = pipeline.CapturedGraph(None, None, [], {}, [], {})
+    graphs.add(g)
+    assert pipeline._graph_pool(stream) == (pool, graphs)  # a live graph keeps the pool
+    del g
+    again, fresh = pipeline._graph_pool(stream)
+    assert again != pool and not fresh
 
 
 def test_launch_counters_cover_every_kernel_package():

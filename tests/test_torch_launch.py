@@ -6,8 +6,9 @@ as the JAX package's serving facade (``repro.serve.build_server``, which
 auto and measured (over one timing cache) — and serves every stream's
 frames; ``--cost online --replan`` persists and warm-starts its
 calibration; open-loop traffic runs; ``--mode lm`` generates what
-``greedy_generate`` does on the Hymba smoke config; the fleets and the LM
-families not ported yet raise; ``launch.analytic.graph_cost_rows`` gives
+``greedy_generate`` does on the Hymba smoke config; ``--replicas`` and
+``--workers`` serve through the fleets; the LM families not ported yet
+raise; ``launch.analytic.graph_cost_rows`` gives
 the JAX rows under the analytic provider.
 """
 import json
@@ -146,9 +147,24 @@ def test_streams_open_loop_with_admission(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--replicas", "2"], ["--workers", "1"]])
-def test_fleet_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, module queue item 2"):
-        serve.main(SMALL + flag)
+def test_fleet_flags_serve(flag, capsys):
+    """``--replicas`` and ``--workers`` serve on the CPU: the launcher
+    prints the JAX launcher's ``[serve] fleet:`` line and the fleet's
+    merged report, every stream's frames served."""
+    bundle = serve.main(SMALL + flag + ["--router-seed", "3"])
+    out = capsys.readouterr().out
+    rep = json.loads(out[out.index("{\n"):])
+    n = int(flag[1])
+    if flag[0] == "--replicas":
+        assert "[serve] fleet: 2 replicas over 1 device(s), router seed 3" in out
+        assert len(rep["per_replica"]) == 2 and bundle.replicas == 2
+    else:
+        line = next(ln for ln in out.splitlines() if ln.startswith("[serve] fleet:"))
+        assert line.startswith("[serve] fleet: 1 worker processes (pids [") and line.endswith("router seed 3")
+        assert rep["workers"] == n and rep["alive_workers"] == [0] and rep["worker_failures"] == []
+        assert all(h.process is None for h in bundle.server.handles)  # closed by the launcher
+    assert rep["router"]["seed"] == 3 and rep["frames"] == 3 * 2  # 3 streams x --frames 2
+    assert sum(rep["router"]["routed_frames"]) == 6
 
 
 def test_streams_default_to_the_card(monkeypatch):

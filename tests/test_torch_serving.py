@@ -186,17 +186,21 @@ NEW_MODULES = [
     # the launcher slice: graph runners, measured costs, re-planner, loader
     "repro_torch.core.profiler", "repro_torch.serve.replanner", "repro_torch.data.loader",
     "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.launch.analytic",
+    # the fleets
+    "repro_torch.serve.fleet", "repro_torch.serve.multiproc",
 ]
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of the package and the card scripts at the root
-    (``chip_smoke.py``, ``served_trace.py``) import neither ``jax`` nor
-    ``repro``: once imported, and in every import statement of the scripts
-    (their work imports lazily, behind ``__main__``)."""
+    """Every module of the package, the card scripts at the root
+    (``chip_smoke.py``, ``served_trace.py``) and the torch examples
+    (``examples/torch_*.py``) import neither ``jax`` nor ``repro``: once
+    imported, and in every import statement of the scripts (their work
+    imports lazily, behind ``__main__``)."""
     import ast
 
     scripts = [SRC.parent / "chip_smoke.py", SRC.parent / "served_trace.py"]
+    scripts += sorted((SRC.parent / "examples").glob("torch_*.py"))
     names = set()
     for script in scripts:
         for node in ast.walk(ast.parse(script.read_text())):
@@ -232,11 +236,9 @@ def test_build_server_defaults_to_the_card(monkeypatch):
         build_server(img=32, base=8, n_pix=1, n_yolo=1)
 
 
-def test_unported_serving_layers_raise():
-    """The fleets raise; the re-planner, ported since, attaches."""
-    for kw in (dict(replicas=2), dict(workers=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_server(img=32, base=8, n_pix=1, n_yolo=1, device="cpu", **kw)
+def test_build_server_attaches_the_replanner():
+    """``replan=True`` attaches the re-planner to the executor, and a server
+    built by hand over the bundle takes it too."""
     bundle = build_server(img=32, base=8, n_pix=1, n_yolo=1, device="cpu", replan=True)
     assert bundle.replanner is not None and bundle.server.executor.on_tick == bundle.replanner.maybe_replan
     server = MultiStreamServer(bundle.models, bundle.plan, bundle.streams, replanner=bundle.replanner)
