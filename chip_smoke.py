@@ -105,7 +105,24 @@ toolkit, this
    activations and caches against ``__call__`` at the same positions
    (atol 5e-2, rtol 1e-2), then ``greedy_generate`` with batch 4, prompt 16
    and 16 new tokens (``launch/serve.py --mode lm``'s defaults), tokens/s
-   on the host clock.
+   on the host clock;
+11. drives the LM/SSM zoo at full width (``lm_zoo_phase``, ``ZOO``):
+   gemma2-2b (2 x 8192, 26 layers: 26 ``flash_attention`` launches, window
+   4096 on the even layers, softcap 50, D 256), mamba2-2.7b (2 x 4096, 64
+   layers: 64 ``ssd`` launches at n 128) and whisper-small (frames (2,
+   1500, 768), 64 tokens: 36 launches, 24 of them the kernel's non-causal
+   mode) at full depth, and gemma-2b, gemma2-27b, phi4-mini, qwen2-vl-7b
+   (2 layers) and the DeepSeek configs (3 layers; deepseek-v2-lite's MLA
+   takes the plain route: 0 launches) at reduced depth: each f32 prefill
+   through the kernels against the plain ops, the bf16 prefill timed
+   (tokens/s, TFLOP/s from ``launch.analytic``), each distinct kernel call
+   checked and timed as in 8, gemma2-2b and mamba2-2.7b split under
+   ``torch.profiler``, and decode against ``__call__`` (atol 5e-2, rtol
+   1e-2; gemma2-2b through ``greedy_generate``).
+
+The ``kernels`` line's ``flash_attention`` and ``ssd`` rows stay those of
+the bf16 Hymba-1.5B prefill (9), comparable across runs; the zoo's are in
+its printed rows and in ``--json``'s ``lm_zoo``.
 
 It prints each phase's time (``[phase time]``), a ``kernels`` JSON line
 and, last, the ``{"ok": true, ...}`` line; any failure raises and exits
@@ -933,7 +950,8 @@ def device_split(torch, fn, reps=5, passes=BLOCK_PASSES):
 def describe_lm(name, a):
     if name == "flash_attention":
         soft = f" softcap {a['softcap']:g}" if a["softcap"] else ""
-        return (f"q{tuple(a['q'].shape)} k{tuple(a['k'].shape)} window {a['window'] or 0}{soft} "
+        mode = "" if a["causal"] else " non-causal"
+        return (f"q{tuple(a['q'].shape)} k{tuple(a['k'].shape)} window {a['window'] or 0}{soft}{mode} "
                 f"{str(a['q'].dtype)[6:]}")
     return f"x{tuple(a['x'].shape)} B{tuple(a['B'].shape)} {str(a['x'].dtype)[6:]}"
 
@@ -1948,6 +1966,254 @@ def fleet_kill_check(torch, bundle, drive, F):
             "drained_bytes": drained, "pipe_mb_per_s": rates}
 
 
+# The LM/SSM zoo on the card (``lm_zoo_phase``): (architecture, layers kept
+# at full width or None for full depth, prompt length). gemma2-2b prefills
+# its context length, so its local layers see 4096 of 8192 keys; the
+# reduced configs keep one local and one global layer (gemma2-27b) or the
+# dense first layer and two MoE layers (the DeepSeek configs).
+ZOO = (
+    ("gemma2_2b", None, 8192),
+    ("mamba2_2_7b", None, 4096),
+    ("whisper_small", None, 64),
+    ("gemma_2b", 2, 4096),
+    ("gemma2_27b", 2, 4096),
+    ("phi4_mini_3_8b", 2, 4096),
+    ("qwen2_vl_7b", 2, 4096),
+    ("deepseek_moe_16b", 3, 4096),
+    ("deepseek_v2_lite_16b", 3, 4096),
+)
+ZOO_B = 2
+# Tolerances of the zoo's kernel-routed f32 prefill against its plain-ops
+# prefill (relative Frobenius difference per leaf), fixed before the first
+# run, for the reason given at ``PREFILL_F32_TOL``: the two routes differ
+# in summation order only, so the logits and every f32 leaf within 1e-4,
+# and a leaf stored in bf16 (the KV caches, the conv tails) within 1e-3.
+ZOO_F32_TOL = {"f32": 1e-4, "bf16": 1e-3}
+
+
+def _zoo_leaves(res):
+    """{name: tensor} of a prefill's (last-token logits, caches)."""
+    from repro_torch.nn.module import tree_leaves
+
+    logits, caches = res
+    return {"logits": logits, **dict(zip(_paths(caches), tree_leaves(caches)))}
+
+
+def zoo_expected(cfg, family):
+    """The kernel launches of one prefill: flash attention once per GQA
+    layer (MLA takes the plain route: its q.k head dim 192 and v head dim
+    128 are not one of the kernel's head widths), three times per Whisper
+    decoder layer and once per encoder layer, the SSD scan once per Mamba2
+    layer."""
+    if family == "mamba2":
+        return {"flash_attention": 0, "ssd": cfg.n_layers}
+    if family == "whisper":
+        return {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_dec_layers, "ssd": 0}
+    return {"flash_attention": 0 if cfg.attn_type == "mla" else cfg.n_layers, "ssd": 0}
+
+
+def lm_zoo_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref):
+    """Every LM/SSM architecture of the port on the card (``ZOO``): random
+    f32 parameters from ``torch.Generator(dev).manual_seed(0)``; a prefill
+    of ``ZOO_B`` x its prompt length through the kernels in f32 against the
+    same prefill on the plain ops (``patched``: ``attention_ref`` and
+    ``ssd_chunked``), within ``ZOO_F32_TOL`` per leaf, with exactly
+    ``zoo_expected`` launches (the counters set to 0 just before) and no
+    plain route taken for autograd; the bf16 prefill timed with CUDA events
+    (prompt tokens/s, achieved TFLOP/s from ``launch.analytic``); each
+    distinct kernel call of the bf16 prefill (and of Whisper's f32 one)
+    held against its plain version and timed (``LMBench``); gemma2-2b and
+    mamba2-2.7b's bf16 prefills split by kind of kernel
+    (``prefill_time_split``); decode against ``__call__`` at the JAX
+    package's pin (atol 5e-2, rtol 1e-2) for gemma2-2b (through
+    ``greedy_generate``), mamba2-2.7b and whisper-small. Returns rows."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.launch.analytic import fwd_flops_per_token, whisper_encoder_flops
+    from repro_torch.nn.module import param_count
+    from repro_torch.train import greedy_generate, make_lm_decode_step
+
+    rows = {}
+    for arch, depth, S in ZOO:
+        t_arch = time.perf_counter()
+        spec = get_arch(arch)
+        cfg = spec.config
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        whisper = spec.family == "whisper"
+        rng = np.random.default_rng(0)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (ZOO_B, S)).astype(np.int32)).to(dev)
+        frames = None
+        if whisper:
+            frames = torch.from_numpy(rng.standard_normal((ZOO_B, cfg.n_frames, cfg.d_model), np.float32)).to(dev)
+        params = build_model(cfg).init(torch.Generator(dev).manual_seed(0))
+        n = param_count(params)
+        want_n = None if depth is not None else spec.config.n_params()
+        if want_n is not None and n != want_n:
+            raise AssertionError(f"{arch}: {n} parameters, want {want_n}")
+        full_depth = "full depth" if depth is None else f"{depth} of {spec.config.n_layers} layers"
+        print(f"{arch}: {n:,} random f32 parameters on the card ({full_depth}, full width)")
+        expected = zoo_expected(cfg, spec.family)
+        groups = {}
+
+        def recorder(key, name, real):
+            def f(*args, **kw):
+                a = lm_bench.args(name, *args, **kw)
+                sig = (name, describe_lm(name, a), a.get("window"), a.get("chunk"))
+                groups.setdefault(key, {}).setdefault(sig, [a, 0])[1] += 1
+                return real(*args, **kw)
+
+            return f
+
+        def prefill_fn(model):
+            @torch.no_grad()
+            def run(p):
+                return model.prefill(p, frames, tokens) if whisper else model.prefill(p, tokens)
+
+            return run
+
+        def counted(run, what):
+            attn_ops.reset_launches()
+            ssd_ops.reset_launches()
+            kernels.grad_routes.clear()
+            out = run(params)
+            torch.cuda.synchronize()
+            got = {**attn_ops.launches, **ssd_ops.launches}
+            if got != expected or kernels.grad_routes:
+                raise AssertionError(f"{arch} {what} prefill launched {got}, want {expected}; plain routes taken "
+                                     f"for autograd {dict(kernels.grad_routes)}, want none")
+            return out
+
+        # f32: kernels against the plain ops
+        run32 = prefill_fn(build_model(dataclasses.replace(cfg, act_dtype=torch.float32)))
+        with patched(attn_ops, "attention", recorder("f32", "flash_attention", attn_ops.attention)), \
+                patched(ssd_ops, "ssd", recorder("f32", "ssd", ssd_ops.ssd)):
+            run32(params)  # warm-up, recording the kernels' calls by shape
+        kern = _zoo_leaves(counted(run32, "f32"))
+        with patched(attn_ops, "attention", attn_ref.attention_ref), patched(ssd_ops, "ssd", ssd_ref.ssd_chunked):
+            plain = _zoo_leaves(run32(params))
+            torch.cuda.synchronize()
+        checks = {}
+        for leaf, v in kern.items():
+            w = plain[leaf]
+            if tuple(v.shape) != tuple(w.shape) or not bool(torch.isfinite(v.float()).all()):
+                raise AssertionError(f"{arch} prefill {leaf}: shape {tuple(v.shape)} vs {tuple(w.shape)}, or non-finite")
+            tol = ZOO_F32_TOL["bf16" if v.dtype == torch.bfloat16 else "f32"]
+            checks[leaf] = (_rel_norm(v, w), tol)
+        worst_leaf = max(checks, key=lambda k: checks[k][0] / checks[k][1])
+        bad = {k: c for k, c in checks.items() if not c[0] <= c[1]}
+        print(f"  f32 prefill ({ZOO_B} x {S} tokens{', frames ' + str(tuple(frames.shape)) if whisper else ''}): "
+              f"launches {json.dumps(expected)}; kernel vs plain route: logits {checks['logits'][0]:.3e} "
+              f"(<= {checks['logits'][1]:g}), worst of {len(checks)} leaves {worst_leaf} {checks[worst_leaf][0]:.3e} "
+              f"(<= {checks[worst_leaf][1]:g})")
+        if bad:
+            raise AssertionError(f"{arch} prefill: kernel route vs plain ops beyond tolerance {bad}")
+        del kern, plain
+        if whisper:
+            non_causal = sum(c for (nm, desc, *_), (a, c) in groups["f32"].items() if not a["causal"])
+            if non_causal != cfg.n_enc_layers + cfg.n_dec_layers:
+                raise AssertionError(f"whisper prefill: {non_causal} non-causal flash calls, want "
+                                     f"{cfg.n_enc_layers + cfg.n_dec_layers}")
+            print(f"  of the {expected['flash_attention']} flash_attention launches, {non_causal} non-causal "
+                  "(encoder self-attention, cross-attention)")
+        if spec.family == "lm" and cfg.attn_type == "mla":
+            print("  0 kernel launches: MLA takes the plain route (q.k head dim "
+                  f"{cfg.qk_nope_dim + cfg.qk_rope_dim}, v head dim {cfg.v_head_dim}; the kernel takes one head "
+                  "width for q, k and v)")
+
+        # bf16: the timed prefill
+        run16 = prefill_fn(build_model(dataclasses.replace(cfg, act_dtype=torch.bfloat16)))
+        with patched(attn_ops, "attention", recorder("bf16", "flash_attention", attn_ops.attention)), \
+                patched(ssd_ops, "ssd", recorder("bf16", "ssd", ssd_ops.ssd)):
+            run16(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        counted(run16, "bf16")
+        end.record()
+        torch.cuda.synchronize()
+        ms, peak = start.elapsed_time(end), torch.cuda.max_memory_allocated()
+        # executed FLOPs: the analytic forward per token, less the LM head of
+        # all but the last token (prefill computes the last token's logits)
+        flops = ZOO_B * S * fwd_flops_per_token(cfg, S, "prefill") - ZOO_B * (S - 1) * 2 * cfg.d_model * cfg.vocab
+        if whisper:
+            flops += whisper_encoder_flops(cfg, ZOO_B)
+        row = {"depth": depth or "full", "params": n, "prompt": [ZOO_B, S], "launches": expected,
+               "f32_checks": checks, "bf16_ms": ms, "tokens_per_s": ZOO_B * S / (ms / 1e3),
+               "tflop_s": flops / (ms / 1e3) / 1e12, "flops": flops, "peak_bytes": peak}
+        print(f"  bf16 prefill: {ms:.2f} ms on the card, {row['tokens_per_s']:,.0f} prompt tokens/s, "
+              f"{row['tflop_s']:.1f} TFLOP/s ({flops / 1e12:.2f} TFLOP, launch.analytic), peak "
+              f"{peak / 2**30:.2f} GiB | {smi}")
+        if arch in ("gemma2_2b", "mamba2_2_7b"):
+            split = prefill_time_split(torch, lambda p, _t: run16(p), params, None)
+            row["bf16_split"] = split
+            if not split:
+                print("  bf16 prefill time split: not measured (the profiler recorded no kernel)")
+            else:
+                kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["by_kind"].items(), key=lambda kv: -kv[1]))
+                print(f"  bf16 prefill under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy "
+                      f"{split['busy_ms']:.2f} ms ({kinds}), idle {100 * split['idle_share']:.1f}%; largest other: "
+                      + "; ".join(f"{k} {v:.2f}" for k, v in split["top_other"]))
+
+        # each distinct kernel call on its own: bf16, and Whisper's f32 (the non-causal mode in f32)
+        row["calls"] = []
+        for key in ("bf16", "f32") if whisper else ("bf16",):
+            for (name, desc, *_), (a, count) in groups.get(key, {}).items():
+                r = lm_bench.run(name, a)
+                row["calls"].append({"kernel": name, "shape": desc, "count": count, **r})
+                lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+                rate = f" ({achieved(r)})" if name == "flash_attention" else ""
+                print(f"  {name:15s} {desc:62s} x{count}: kernel {r['ms']:.4f} ms{rate}, plain {r['plain_ms']:.4f}, "
+                      f"library {lib}, bound {r['bound_ms']:.5f} "
+                      f"({'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'}), max_err vs f32 "
+                      f"{r['max_abs_err']:.2e}")
+        del groups
+
+        # decode against __call__
+        if depth is None:
+            model = build_model(dataclasses.replace(cfg, act_dtype=torch.float32))
+            T = 8 if whisper else 16
+            with torch.no_grad():
+                if arch == "gemma2_2b":
+                    t0 = time.perf_counter()
+                    gen = greedy_generate(model, params, tokens[:, :16], 16, 32, cache_dtype=torch.float32)
+                    torch.cuda.synchronize()
+                    row["generate_tokens_per_s"] = ZOO_B * 16 / (time.perf_counter() - t0)
+                    if tuple(gen.shape) != (ZOO_B, 16) or not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+                        raise AssertionError(f"greedy_generate gave {tuple(gen.shape)} / out-of-vocabulary ids")
+                    seq, T = torch.cat([tokens[:, :16], gen], dim=1), 32
+                else:
+                    seq = tokens[:, :T]
+                full = model(params, frames, seq)[0] if whisper else model(params, seq)[0]
+                caches = model.init_caches(ZOO_B, T, dtype=torch.float32, device=dev)
+                if whisper:  # the cross K/V of the same frames
+                    _, pc = model.prefill(params, frames, seq[:, :1], cache_dtype=torch.float32)
+                    caches = dict(caches, cross_k=pc["cross_k"], cross_v=pc["cross_v"])
+                step = make_lm_decode_step(model)
+                outs = []
+                for t in range(T):
+                    lg, caches = step(params, seq[:, t : t + 1], caches, t)
+                    outs.append(lg)
+                dec = torch.cat(outs, 1)
+            err = (dec - full).abs().max().item()
+            torch.testing.assert_close(dec, full, atol=5e-2, rtol=1e-2)
+            row["decode_vs_call_max_abs_err"] = err
+            gen_s = (f"; greedy_generate batch {ZOO_B}, prompt 16, 16 new: {row['generate_tokens_per_s']:.1f} "
+                     "tokens/s (host clock)") if "generate_tokens_per_s" in row else ""
+            print(f"  decode (f32, {T} steps) vs __call__: max |delta logits| {err:.3e} (atol 5e-2, rtol 1e-2)"
+                  f"{gen_s}")
+            del model, full, caches, dec
+        del params
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t_arch
+        print(f"  [{arch} time] {row['seconds']:.1f} s")
+        rows[arch] = row
+    return rows
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--json", help="also write every measured row to this file")
@@ -2324,7 +2590,14 @@ def main() -> int:
     print("-- Hymba-1.5B decode at full width (f32 activations and caches)")
     decode_row = hymba_decode_phase(torch, smi, dev, hcfg, hparams)
     del hparams
+    torch.cuda.empty_cache()
     lap("Hymba decode")
+    print("-- the LM/SSM zoo at full width: gemma2-2b, mamba2-2.7b and whisper-small at full depth, the other six "
+          "configs at reduced depth (TF32 off)")
+    t_zoo = time.perf_counter()
+    zoo_rows = lm_zoo_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref)
+    print(f"LM zoo phase: {time.perf_counter() - t_zoo:.1f} s")
+    lap("LM zoo")
 
     kernels = []
     for n in REPLACES:
@@ -2362,7 +2635,7 @@ def main() -> int:
              "bf16_forward": {"launches": bf16_launches, "checks": bf16_checks},
              "hymba_prefill": prefill_rows, "lm_per_prefill": lm_tot, "hymba_decode": decode_row,
              "flash_ptxas": flash_tc, "launcher": launcher_rows, "served_ab": served_rows,
-             "fleets": fleet_rows,
+             "fleets": fleet_rows, "lm_zoo": zoo_rows,
              "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,10 @@
 """Architecture registry (the counterpart of ``repro.configs``): one module
-per ported architecture, each a copy of the JAX package's, exposing
-``CONFIG`` (full, assignment-exact) and ``SMOKE`` (reduced same-family
-config for CPU tests).
-
-Families not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item from ``get_arch``; the port has no config class of theirs, so
-``build_model`` (a ``TypeError`` for any config it does not know) cannot
-be handed one.
+per architecture, each a copy of the JAX package's, exposing ``CONFIG``
+(full, assignment-exact), ``SMOKE`` (reduced same-family config for CPU
+tests) and, where the JAX package's has them, ``SKIP_SHAPES`` /
+``SKIP_REASONS`` (shapes an architecture skips, and why), ``TRAIN_MICRO``
+and ``TRAIN_FSDP`` (its training launcher's microbatches and weight
+sharding, carried for the training slice).
 """
 from __future__ import annotations
 
@@ -41,14 +39,6 @@ FAMILIES = {
     "pix2pix_mri": "pix2pix",
     "yolov8_stroke": "yolo",
 }
-PORTED = ("hymba", "pix2pix", "yolo")
-# where each family not ported yet is queued
-_QUEUED = {
-    "lm": "ROADMAP module queue item 3 (TransformerLM: dense, then MoE, MLA, M-RoPE)",
-    "mamba2": "ROADMAP module queue item 3 (Mamba2LM)",
-    "whisper": "ROADMAP module queue item 3 (WhisperModel)",
-}
-
 # assignment shape set (LM transformers): seq_len x global_batch
 SHAPES = {
     "train_4k": {"kind": "train", "seq_len": 4096, "global_batch": 256},
@@ -64,6 +54,10 @@ class ArchSpec:
     family: str  # lm | mamba2 | hymba | whisper | pix2pix | yolo
     config: Any
     smoke: Any
+    skip_shapes: tuple[str, ...] = ()
+    skip_reasons: dict | None = None
+    train_micro: int = 8  # microbatches for the train-shape dry-run/launcher
+    train_fsdp: bool = True  # False => TP-only weights (small models: kills FSDP gathers)
 
 
 _CACHE: dict[str, ArchSpec] = {}
@@ -73,20 +67,49 @@ def get_arch(name: str) -> ArchSpec:
     key = name.replace("-", "_").replace(".", "_")
     if key not in FAMILIES:
         raise KeyError(f"unknown architecture {name!r}")
-    family = FAMILIES[key]
-    if family not in PORTED:
-        raise NotImplementedError(f"{key}: the {family!r} family is not ported yet ({_QUEUED[family]})")
     if key not in _CACHE:
         mod = importlib.import_module(f"{__name__}.{key}")
-        _CACHE[key] = ArchSpec(name=key, family=mod.FAMILY, config=mod.CONFIG, smoke=mod.SMOKE)
+        _CACHE[key] = ArchSpec(
+            name=key,
+            family=mod.FAMILY,
+            config=mod.CONFIG,
+            smoke=mod.SMOKE,
+            skip_shapes=tuple(getattr(mod, "SKIP_SHAPES", ())),
+            skip_reasons=getattr(mod, "SKIP_REASONS", None),
+            train_micro=getattr(mod, "TRAIN_MICRO", 8),
+            train_fsdp=getattr(mod, "TRAIN_FSDP", True),
+        )
     return _CACHE[key]
 
 
-def build_model(cfg):
-    from ..models import HymbaConfig, HymbaLM, Pix2Pix, Pix2PixConfig, YOLOv8, YOLOv8Config
+def all_archs() -> list[ArchSpec]:
+    return [get_arch(a) for a in ARCH_IDS]
 
+
+def build_model(cfg):
+    from ..models import (
+        HymbaConfig,
+        HymbaLM,
+        LMConfig,
+        Mamba2Config,
+        Mamba2LM,
+        Pix2Pix,
+        Pix2PixConfig,
+        TransformerLM,
+        WhisperConfig,
+        WhisperModel,
+        YOLOv8,
+        YOLOv8Config,
+    )
+
+    if isinstance(cfg, LMConfig):
+        return TransformerLM(cfg)
+    if isinstance(cfg, Mamba2Config):
+        return Mamba2LM(cfg)
     if isinstance(cfg, HymbaConfig):
         return HymbaLM(cfg)
+    if isinstance(cfg, WhisperConfig):
+        return WhisperModel(cfg)
     if isinstance(cfg, Pix2PixConfig):
         return Pix2Pix(cfg)
     if isinstance(cfg, YOLOv8Config):

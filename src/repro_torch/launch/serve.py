@@ -24,11 +24,12 @@ names another device.
   PYTHONPATH=src python -m repro_torch.launch.serve --mode streams --workers 2 \\
       --traffic poisson --rate 30 --duration 2   # multi-process fleet (IPC router)
 
-``--mode lm`` takes ``--arch hymba_1_5b`` (the one LM family ported so
-far); other architectures raise from ``configs.get_arch`` until their
-family is ported. ``main(argv)`` takes the arguments as a list, so a
-program can drive the launcher in its own process: streams mode returns
-the (closed) ``ServerBundle``, lm mode the generated tokens.
+``--mode lm`` serves any architecture of ``configs.ARCH_IDS`` at its
+smoke config (``--arch``, default ``gemma2_2b`` as in the JAX launcher):
+the prompt fed token by token through ``decode_step``, then greedy tokens.
+``main(argv)`` takes the arguments as a list, so a program can drive the
+launcher in its own process: streams mode returns the (closed)
+``ServerBundle``, lm mode the generated tokens.
 """
 from __future__ import annotations
 
@@ -220,8 +221,8 @@ def main(argv=None):
     ap.add_argument("--mode", choices=("lm", "streams"), default="lm")
     ap.add_argument(
         "--arch",
-        default="hymba_1_5b",
-        help="--mode lm architecture (its smoke config); families not ported yet raise",
+        default="gemma2_2b",
+        help="--mode lm architecture, one of configs.ARCH_IDS (served at its smoke config)",
     )
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

@@ -10,7 +10,7 @@ from .module import (
     lecun_init,
     conv_init,
 )
-from .norm import GroupNorm2D, InstanceNorm2D, RMSNorm
+from .norm import GroupNorm2D, InstanceNorm2D, LayerNorm, RMSNorm
 from .conv import (
     Conv2D,
     ConvTranspose2D,
@@ -22,7 +22,8 @@ from .conv import (
 )
 from .linear import Linear, MultiLinear, OutputLinear
 from .embed import Embedding
-from .rotary import apply_rope, rope_freqs
+from .rotary import apply_mrope, apply_rope, rope_freqs
 from .mlp import MLP
-from .attention import Attention, causal_window_mask, effective_chunk
+from .attention import Attention, MLAAttention, causal_window_mask, effective_chunk
+from .moe import MoE
 from .ssm import Mamba2Block, segsum, ssd_chunked, ssd_decode_step

@@ -1,19 +1,25 @@
-"""GQA attention with causal + sliding-window masks, logit softcap, RoPE
-and KV caches (full and ring buffer): the full-sequence and decode paths of
-``repro.nn.attention.Attention``.
+"""Attention: MHA/GQA/MQA with causal + sliding-window masks, logit
+softcap, RoPE/M-RoPE, KV caches (full and ring buffer), and DeepSeek-V2's
+MLA — the counterpart of ``repro.nn.attention``.
 
 On the CPU every path computes what the JAX package computes, op for op
-(``_sdpa``, and ``_sdpa_chunked`` above ``attn_chunk``). On a CUDA tensor
-the full-sequence causal self-attention (``prefill``, and ``__call__``
-with ``causal=True`` and no ``kv_x``) goes through the flash-attention
-kernel, ``kernels.attention.ops.attention``, when the mask's positions are
-the kernel's: the token indices (``positions=None``, or positions the model
-built as ``arange(S)`` and flagged with ``index_positions=True``) and
-autograd needs no gradient through it (the kernel has no backward). A
-caller's own positions, and a forward that autograd differentiates, take
-the plain route, on both devices. ``window`` is a Python int
-(0 or None: global). MLA and the cross-attention helpers come with the
-models that use them.
+(``_sdpa``, and ``_sdpa_chunked`` above ``attn_chunk``). On a CUDA tensor,
+where autograd needs no gradient through it (the kernel has no backward),
+the full-sequence paths of ``Attention`` go through the flash-attention
+kernel, ``kernels.attention.ops.attention``:
+- causal self-attention (``prefill``, ``__call__`` with ``causal=True``
+  and no ``kv_x``) when the mask's positions are the kernel's: the token
+  indices (``positions=None``, or positions the model built as
+  ``arange(S)`` and flagged with ``index_positions=True``; with M-RoPE the
+  mask reads the temporal ids). A caller's own positions take the plain
+  route;
+- non-causal self-attention and cross-attention (``causal=False``, with or
+  without ``kv_x``), whose mask is all ones whatever the positions.
+A forward that autograd differentiates takes the plain route, on both
+devices. The one-token ``decode``, ``attend_kv`` and ``MLAAttention`` (q·k
+head dim 192, v head dim 128: the kernel takes one head dim for q, k and
+v) run the plain ops on both devices, as the JAX package does. ``window``
+is a Python int (0 or None: global).
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from ..kernels import grad_route
 from ..kernels.attention import ops as attention_ops
 from .linear import MultiLinear, OutputLinear
 from .module import Module
-from .rotary import apply_rope
+from .rotary import apply_mrope, apply_rope
 
 NEG_INF = -2.3819763e38  # large negative for masking (fits bf16 after cast via fp32)
 
@@ -83,6 +89,11 @@ def _arange(S, device):
     return torch.arange(S, device=device)[None, :]
 
 
+def _temporal(positions):
+    """The mask's positions: M-RoPE's (B, S, 3) ids give their temporal ids."""
+    return positions[..., 0] if positions is not None and positions.dim() == 3 else positions
+
+
 @dataclasses.dataclass(frozen=True)
 class Attention(Module):
     """GQA attention block (q/k/v/o projections + rotary)."""
@@ -94,6 +105,7 @@ class Attention(Module):
     rope_base: float = 10000.0
     softcap: float | None = None
     query_scale: float | None = None  # default 1/sqrt(head_dim)
+    mrope_sections: tuple[int, ...] | None = None
     use_rope: bool = True
     # query-chunked attention: bounds the transient (B,H,chunk,S) score
     # tensor of the plain route instead of materializing (B,H,S,S)
@@ -115,11 +127,14 @@ class Attention(Module):
     def _qkv(self, p, x, positions, kv_x=None):
         kv_x = x if kv_x is None else kv_x
         q = MultiLinear(self.d_model, self.n_q, self.head_dim)(p["wq"], x)
-        k = MultiLinear(self.d_model, self.n_kv, self.head_dim)(p["wk"], kv_x)
-        v = MultiLinear(self.d_model, self.n_kv, self.head_dim)(p["wv"], kv_x)
+        k, v = self.project_kv(p, kv_x)
         if self.use_rope and positions is not None:
-            q = apply_rope(q, positions, self.rope_base)
-            k = apply_rope(k, positions, self.rope_base)
+            if self.mrope_sections is not None:
+                q = apply_mrope(q, positions, self.mrope_sections, self.rope_base)
+                k = apply_mrope(k, positions, self.mrope_sections, self.rope_base)
+            else:
+                q = apply_rope(q, positions, self.rope_base)
+                k = apply_rope(k, positions, self.rope_base)
         return q, k, v
 
     def _group(self, q):
@@ -132,17 +147,17 @@ class Attention(Module):
 
     def _attend(self, q, k, v, positions, window, causal=True, kv_positions=None, cross=False,
                 index_positions=False):
-        """Causal self-attention over the full sequence goes through the
-        kernel on a CUDA tensor whose mask positions are the token indices,
-        unless autograd needs its gradient; everything else takes the JAX
-        package's path (``_sdpa``, or ``_sdpa_chunked`` above
+        """The kernel on a CUDA tensor where its mask is the model's
+        (non-causal attention, or causal self-attention over the token
+        indices) and autograd needs no gradient; everything else takes the
+        JAX package's path (``_sdpa``, or ``_sdpa_chunked`` above
         ``attn_chunk``)."""
         S, Sk = q.shape[1], k.shape[1]
-        if (causal and not cross and q.device.type == "cuda" and (positions is None or index_positions)
-                and not grad_route("flash_attention", q, k, v)):
-            return attention_ops.attention(q, k, v, causal=True, window=max(window or 0, 0),
+        kernel_mask = not causal or (not cross and (positions is None or index_positions))
+        if kernel_mask and q.device.type == "cuda" and not grad_route("flash_attention", q, k, v):
+            return attention_ops.attention(q, k, v, causal=causal, window=max(window or 0, 0) if causal else 0,
                                            softcap=self.softcap, scale=self._scale)
-        q_pos = positions if positions is not None else _arange(S, q.device)
+        q_pos = _temporal(positions) if positions is not None else _arange(S, q.device)
         if not cross:
             k_pos = q_pos
         else:
@@ -172,6 +187,21 @@ class Attention(Module):
         return self._out(p, self._attend(q, k, v, positions, window, causal, kv_positions, kv_x is not None,
                                          index_positions))
 
+    def project_kv(self, p, kv_x):
+        """Compute (k, v) only — used to precompute cross-attention caches."""
+        k = MultiLinear(self.d_model, self.n_kv, self.head_dim)(p["wk"], kv_x)
+        v = MultiLinear(self.d_model, self.n_kv, self.head_dim)(p["wv"], kv_x)
+        return k, v
+
+    def attend_kv(self, p, x, k, v, mask=None):
+        """Attention of queries from ``x`` against precomputed (k, v), no
+        rotary; ``mask`` (B|1, 1, Sq, Sk), default all keys."""
+        S = x.shape[1]
+        q = MultiLinear(self.d_model, self.n_q, self.head_dim)(p["wq"], x)
+        if mask is None:
+            mask = torch.ones((1, 1, S, k.shape[1]), dtype=torch.bool, device=x.device)
+        return self._out(p, _sdpa(self._group(q), k.to(q.dtype), v.to(q.dtype), mask, self._scale, self.softcap))
+
     # -- decode with cache -----------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
         shape = (batch, max_len, self.n_kv, self.head_dim)
@@ -179,10 +209,14 @@ class Attention(Module):
 
     def decode(self, p, x, cache, t: int, window=None):
         """x: (B,1,d); t: index of the new token. Returns (y, cache); the
-        cache given is not modified (a new one is returned, as in JAX)."""
+        cache given is not modified (a new one is returned, as in JAX). The
+        cache is a ring buffer of its own length: a decode at t >= its
+        length overwrites slot t % length, as the JAX package's does."""
         B = x.shape[0]
         dev = x.device
         pos = torch.full((B, 1), t, dtype=torch.int32, device=dev)
+        if self.mrope_sections is not None:
+            pos = pos[..., None].expand(B, 1, 3)
         q, k_new, v_new = self._qkv(p, x, pos)
         S = cache["k"].shape[1]
         if S == 1:  # degenerate: window-1 cache
@@ -201,3 +235,135 @@ class Attention(Module):
         mask = causal_window_mask(q_pos, k_pos, window) & (k_pos >= 0)[..., None, :]
         out = _sdpa(self._group(q), k.to(q.dtype), v.to(q.dtype), mask[:, None], self._scale, self.softcap)
         return self._out(p, out), cache
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAAttention(Module):
+    """Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434).
+
+    KV is compressed into a rank-``kv_lora`` latent + a shared RoPE key.
+    The cache stores only (c_kv, k_rope): 512+64 floats per token instead of
+    2 * n_heads * head_dim. ``absorb`` enables the paper's weight-absorption
+    decode optimization (attend in latent space; no per-step k/v expansion).
+    Plain ops on both devices (see the module docstring).
+    """
+
+    d_model: int
+    n_q: int
+    kv_lora: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_base: float = 10000.0
+    absorb: bool = False
+    attn_chunk: int = 0
+
+    @property
+    def _scale(self):
+        return 1.0 / math.sqrt(self.qk_nope_dim + self.qk_rope_dim)
+
+    def _wq(self):
+        return MultiLinear(self.d_model, self.n_q, self.qk_nope_dim + self.qk_rope_dim)
+
+    def _wuk(self):
+        return MultiLinear(self.kv_lora, self.n_q, self.qk_nope_dim, in_axis=None)
+
+    def _wuv(self):
+        return MultiLinear(self.kv_lora, self.n_q, self.v_head_dim, in_axis=None)
+
+    def specs(self):
+        return {
+            "wq": self._wq(),
+            "wdkv": MultiLinear(self.d_model, 1, self.kv_lora, head_axis=None),
+            "wkr": MultiLinear(self.d_model, 1, self.qk_rope_dim, head_axis=None),
+            "wuk": self._wuk(),
+            "wuv": self._wuv(),
+            "wo": OutputLinear(self.n_q, self.v_head_dim, self.d_model),
+        }
+
+    def _latents(self, p, x, positions):
+        c_kv = MultiLinear(self.d_model, 1, self.kv_lora, head_axis=None)(p["wdkv"], x)[:, :, 0]
+        k_r = MultiLinear(self.d_model, 1, self.qk_rope_dim, head_axis=None)(p["wkr"], x)
+        if positions is not None:
+            k_r = apply_rope(k_r, positions, self.rope_base)
+        return c_kv, k_r[:, :, 0]
+
+    def _q(self, p, x, positions):
+        q = self._wq()(p["wq"], x)
+        return q[..., : self.qk_nope_dim], apply_rope(q[..., self.qk_nope_dim :], positions, self.rope_base)
+
+    def _softmax_out(self, scores, mask, v, eq):
+        scores = scores.float() * self._scale + _mask_bias(mask)
+        return torch.einsum(eq, torch.softmax(scores, dim=-1).to(v.dtype), v)
+
+    def __call__(self, p, x, positions=None, window=None, causal=True, index_positions=False):
+        """``index_positions`` (and ``prefill``'s) is taken for
+        ``Attention``'s signature: MLA has no kernel route."""
+        B, S, _ = x.shape
+        if positions is None:
+            positions = _arange(S, x.device)
+        q_nope, q_rope = self._q(p, x, positions)
+        c_kv, k_r = self._latents(p, x, positions)
+        k_nope = self._wuk()(p["wuk"], c_kv)
+        v = self._wuv()(p["wuv"], c_kv)
+
+        def attend(q_nope_c, q_rope_c, q_pos_c):
+            if causal:
+                mask = causal_window_mask(q_pos_c, positions, window)[:, None]
+            else:
+                mask = torch.ones((1, 1, q_pos_c.shape[-1], S), dtype=torch.bool, device=x.device)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q_nope_c, k_nope) + torch.einsum("bqhd,bkd->bhqk", q_rope_c, k_r)
+            return self._softmax_out(scores, mask, v, "bhqk,bkhd->bqhd")
+
+        ck = effective_chunk(self.attn_chunk, S, S) if self.attn_chunk else 0
+        if ck and S > ck and S % ck == 0:
+            out = torch.cat([attend(q_nope[:, st : st + ck], q_rope[:, st : st + ck], positions[..., st : st + ck])
+                             for st in range(0, S, ck)], dim=1)
+        else:
+            out = attend(q_nope, q_rope, positions)
+        return OutputLinear(self.n_q, self.v_head_dim, self.d_model)(p["wo"], out)
+
+    def prefill(self, p, x, positions=None, window=None, cache_dtype=torch.bfloat16, index_positions=False):
+        if positions is None:
+            positions = _arange(x.shape[1], x.device)
+        y = self(p, x, positions, window=window)
+        c_kv, k_r = self._latents(p, x, positions)
+        return y, {"c_kv": c_kv.to(cache_dtype), "k_r": k_r.to(cache_dtype)}
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None):
+        return {
+            "c_kv": torch.zeros((batch, max_len, self.kv_lora), dtype=dtype, device=device),
+            "k_r": torch.zeros((batch, max_len, self.qk_rope_dim), dtype=dtype, device=device),
+        }
+
+    def decode(self, p, x, cache, t: int, window=None):
+        """x: (B,1,d). The new latents go to slot min(t, S - 1), as
+        ``jax.lax.dynamic_update_slice`` clamps its start index."""
+        B = x.shape[0]
+        pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+        q_nope, q_rope = self._q(p, x, pos)
+        c_new, kr_new = self._latents(p, x, pos)
+        S = cache["c_kv"].shape[1]
+        slot = min(t, S - 1)
+        c_all, kr_all = cache["c_kv"].clone(), cache["k_r"].clone()
+        c_all[:, slot] = c_new[:, 0].to(c_all.dtype)
+        kr_all[:, slot] = kr_new[:, 0].to(kr_all.dtype)
+        cache = {"c_kv": c_all, "k_r": kr_all}
+        c_kv, k_r = c_all.to(x.dtype), kr_all.to(x.dtype)
+        k_pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+        q_pos = torch.full((1, 1), t, dtype=torch.int32, device=x.device)
+        mask = causal_window_mask(q_pos, k_pos, window)[:, None]  # (1,1,1,S)
+        rope_scores = torch.einsum("bqhd,bkd->bhqk", q_rope, k_r)
+        if self.absorb:
+            # weight absorption: q_nope' = q_nope @ W_uk  -> attend against c_kv
+            wuk = p["wuk"]["w"].to(x.dtype)  # (kv_lora, H, nope)
+            q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, wuk)  # (B,1,H,r)
+            scores = torch.einsum("bqhr,bkr->bhqk", q_lat, c_kv) + rope_scores
+            out_lat = self._softmax_out(scores, mask, c_kv, "bhqk,bkr->bqhr")  # (B,1,H,r)
+            out = torch.einsum("bqhr,rhd->bqhd", out_lat, p["wuv"]["w"].to(x.dtype))
+        else:
+            k_nope = self._wuk()(p["wuk"], c_kv)
+            v = self._wuv()(p["wuv"], c_kv)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope) + rope_scores
+            out = self._softmax_out(scores, mask, v, "bhqk,bkhd->bqhd")
+        return OutputLinear(self.n_q, self.v_head_dim, self.d_model)(p["wo"], out), cache

@@ -1,5 +1,5 @@
-"""Normalization layers (computed in fp32, cast back): RMSNorm over the
-last axis, and instance / group norm on NHWC tensors."""
+"""Normalization layers (computed in fp32, cast back): RMSNorm and
+LayerNorm over the last axis, and instance / group norm on NHWC tensors."""
 from __future__ import annotations
 
 import dataclasses
@@ -84,3 +84,23 @@ class GroupNorm2D(Module):
         x32 = x.float().reshape(b, h, w, self.groups, self.c // self.groups)
         y = _normalize(x32, (1, 2, 4), self.eps).reshape(b, h, w, self.c)
         return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerNorm(Module):
+    d: int
+    eps: float = 1e-5
+    use_bias: bool = True
+    axis_name: str | None = None
+
+    def specs(self):
+        s = {"scale": ParamSpec((self.d,), (self.axis_name,), ones_init())}
+        if self.use_bias:
+            s["bias"] = ParamSpec((self.d,), (self.axis_name,), zeros_init())
+        return s
+
+    def __call__(self, p, x):
+        y = _normalize(x.float(), -1, self.eps) * p["scale"].float()
+        if self.use_bias:
+            y = y + p["bias"].float()
+        return y.to(x.dtype)

@@ -11,9 +11,11 @@ optimizer state match the reference. Training runs the plain ops
 refuse to run under autograd.
 
 The LM serving entry points (``make_lm_prefill``, ``make_lm_decode_step``,
-``greedy_generate``) run under ``torch.no_grad()`` where the parameters
-are: on the card they go through the LM kernels. The LM training step
-factories come with LM training.
+``greedy_generate``) serve every LM family (``TransformerLM``,
+``Mamba2LM``, ``HymbaLM``, ``WhisperModel``: each has the same method
+names) under ``torch.no_grad()`` where the parameters are: on the card
+their prefills go through the LM kernels. The LM training step factories
+come with LM training.
 """
 from __future__ import annotations
 
@@ -116,7 +118,8 @@ def make_lm_prefill(model):
 def greedy_generate(model, params, prompt, steps: int, max_len: int, cache_dtype=torch.bfloat16):
     """Reference sampling loop: the prompt fed one token at a time through
     ``decode_step``, then ``steps`` greedy tokens. prompt (B, S) int ->
-    (B, steps)."""
+    (B, steps). A Whisper model decodes against its zero cross caches (no
+    audio is encoded), as the JAX package's loop does."""
     B, S = prompt.shape
     caches = model.init_caches(B, max_len, dtype=cache_dtype, device=prompt.device)
     tok = prompt[:, :1]

@@ -6,10 +6,10 @@ as the JAX package's serving facade (``repro.serve.build_server``, which
 auto and measured (over one timing cache) — and serves every stream's
 frames; ``--cost online --replan`` persists and warm-starts its
 calibration; open-loop traffic runs; ``--mode lm`` generates what
-``greedy_generate`` does on the Hymba smoke config; ``--replicas`` and
-``--workers`` serve through the fleets; the LM families not ported yet
-raise; ``launch.analytic.graph_cost_rows`` gives
-the JAX rows under the analytic provider.
+``greedy_generate`` does on the Hymba smoke config, and by default on
+gemma2-2b's; ``--replicas`` and ``--workers`` serve through the fleets;
+``launch.analytic.graph_cost_rows`` gives the JAX rows under the analytic
+provider.
 """
 import json
 
@@ -173,22 +173,28 @@ def test_streams_default_to_the_card(monkeypatch):
         serve.main([a for a in SMALL if a not in ("--device", "cpu")])
 
 
-def test_lm_mode_generates_what_greedy_generate_does(capsys):
-    gen = serve.main(["--tokens", "4", "--batch", "2", "--prompt-len", "8", "--device", "cpu"])
-    assert "[serve] arch=hymba_1_5b generated (2, 4)" in capsys.readouterr().out
+def _greedy_of_smoke(arch):
     import dataclasses
 
-    cfg = dataclasses.replace(get_arch("hymba_1_5b").smoke, act_dtype=torch.float32)
+    cfg = dataclasses.replace(get_arch(arch).smoke, act_dtype=torch.float32)
     model = build_model(cfg)
     params = model.init(torch.Generator("cpu").manual_seed(0))
     prompt = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 8)))
-    want = greedy_generate(model, params, prompt, steps=4, max_len=12, cache_dtype=torch.float32)
-    assert torch.equal(gen, want)
+    return greedy_generate(model, params, prompt, steps=4, max_len=12, cache_dtype=torch.float32)
 
 
-def test_lm_mode_raises_for_families_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "gemma2_2b", "--tokens", "2", "--device", "cpu"])
+def test_lm_mode_generates_what_greedy_generate_does(capsys):
+    gen = serve.main(["--arch", "hymba_1_5b", "--tokens", "4", "--batch", "2", "--prompt-len", "8", "--device", "cpu"])
+    assert "[serve] arch=hymba_1_5b generated (2, 4)" in capsys.readouterr().out
+    assert torch.equal(gen, _greedy_of_smoke("hymba_1_5b"))
+
+
+def test_lm_mode_defaults_to_gemma2_2b_as_greedy_generate(capsys):
+    """``--mode lm`` with no ``--arch`` serves gemma2-2b's smoke config, as
+    the JAX launcher does, and generates what ``greedy_generate`` does."""
+    gen = serve.main(["--tokens", "4", "--batch", "2", "--prompt-len", "8", "--device", "cpu"])
+    assert "[serve] arch=gemma2_2b generated (2, 4)" in capsys.readouterr().out
+    assert torch.equal(gen, _greedy_of_smoke("gemma2_2b"))
 
 
 def test_graph_cost_rows_match_jax_under_analytic():

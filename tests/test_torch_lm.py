@@ -253,15 +253,25 @@ def test_hymba_full_width_parameter_count_from_shapes():
 
 
 @pytest.mark.parametrize("arch", ["gemma2_2b", "deepseek_v2_lite_16b", "mamba2_2_7b", "whisper_small"])
-def test_unported_families_raise_not_implemented(arch):
-    """``get_arch`` names the ROADMAP item of a family not ported yet (and
-    imports nothing that fails); ``build_model`` takes none of the JAX
-    package's configs of that family."""
+def test_registry_serves_every_family_with_copied_configs(arch):
+    """``get_arch`` serves the ``lm``, ``mamba2`` and ``whisper`` families,
+    each config and smoke config a field-for-field copy of the JAX
+    package's (the dtype as a torch dtype) with its skip shapes and
+    training knobs, and ``build_model`` builds the family's model."""
+    from repro_torch.models import Mamba2LM, TransformerLM, WhisperModel
+
     assert arch in tconfigs.ARCH_IDS
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_arch(arch)
-    with pytest.raises(TypeError):
-        tconfigs.build_model(jconfigs.get_arch(arch).smoke)
+    jc, tc = jconfigs.get_arch(arch), tconfigs.get_arch(arch)
+    for cfg_j, cfg_t in ((jc.config, tc.config), (jc.smoke, tc.smoke)):
+        assert type(cfg_t).__name__ == type(cfg_j).__name__
+        fj = {f.name: getattr(cfg_j, f.name) for f in dataclasses.fields(cfg_j) if f.name != "act_dtype"}
+        ft = {f.name: getattr(cfg_t, f.name) for f in dataclasses.fields(cfg_t) if f.name != "act_dtype"}
+        assert fj == ft
+        assert cfg_t.act_dtype == torch.bfloat16 and cfg_j.act_dtype == jnp.bfloat16
+    assert (tc.family, tc.skip_shapes, tc.skip_reasons, tc.train_micro, tc.train_fsdp) == (
+        jc.family, jc.skip_shapes, jc.skip_reasons, jc.train_micro, jc.train_fsdp)
+    model = tconfigs.build_model(tc.smoke)
+    assert isinstance(model, {"lm": TransformerLM, "mamba2": Mamba2LM, "whisper": WhisperModel}[tc.family])
 
 
 def test_registry_builds_the_ported_families():
