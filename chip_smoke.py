@@ -118,7 +118,23 @@ toolkit, this
    (tokens/s, TFLOP/s from ``launch.analytic``), each distinct kernel call
    checked and timed as in 8, gemma2-2b and mamba2-2.7b split under
    ``torch.profiler``, and decode against ``__call__`` (atol 5e-2, rtol
-   1e-2; gemma2-2b through ``greedy_generate``).
+   1e-2; gemma2-2b through ``greedy_generate``);
+12. trains LMs on the card (``lm_train_phase``): gemma2-2b at full width
+   and depth (2,614,341,888 parameters, seed 0) through
+   ``repro_torch.launch.train.main``, ``LM_TRAIN_B`` x ``LM_TRAIN_S``
+   tokens, bf16 activations, remat on, 6 steps with one micro-batch and 4
+   with two (``LM_TRAIN_RUNS``): every loss finite, every parameter leaf
+   changed, ms per step (synchronised, from step 2), tokens/s, peak
+   memory, no kernel launch under autograd and the plain routes taken
+   (``kernels.grad_routes``: the forward's and remat's recompute); step 1
+   of gemma2-2b at 2 layers in f32 against the same step on the CPU
+   (``LM_STEP1_LOSS_RTOL``, ``LM_STEP1_GRAD_TOL`` per gradient leaf); one
+   bf16 step each of hymba-1.5b, mamba2-2.7b and whisper-small at full
+   width and 2 layers (``LM_TRAIN_FAMILIES``: loss finite, ms, peak
+   memory, the SSD and attention plain routes); and the loop's fault path
+   at the smoke gemma2-2b (a checkpoint and a rescue checkpoint after an
+   injected data failure each restore bit for bit, the resumed run reaches
+   its last step, ``supervise`` restarts a command that fails once).
 
 The ``kernels`` line's ``flash_attention`` and ``ssd`` rows stay those of
 the bf16 Hymba-1.5B prefill (9), comparable across runs; the zoo's are in
@@ -1022,11 +1038,14 @@ def _prefill_leaves(res):
 PREFILL_F32_TOL = {"logits": 1e-4, "kv.k": 1e-3, "kv.v": 1e-3, "ssm.conv": 1e-3, "ssm.ssm": 1e-4}
 
 
-def prefill_time_split(torch, prefill, params, tokens):
-    """One prefill under ``torch.profiler``: device time by kind of kernel
-    (the two LM kernels, matmuls, everything else) and the device's idle
-    share of the CUDA-event wall of the same run (the profiler's own host
-    cost included). Empty when the profiler recorded no kernel."""
+def time_split(torch, prefill, params, tokens):
+    """One ``prefill(params, tokens)`` (a prefill or a training step) under
+    ``torch.profiler``: device time by kind of kernel (the two LM kernels,
+    matmuls, everything else), the device's idle share of the CUDA-event
+    wall of the same run (the profiler's own host cost included), the ops
+    whose own kernels take the most device time (``top_ops``) and the
+    backward nodes whose kernels, theirs and their ops', take the most
+    (``top_backward``). Empty when the profiler recorded no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1037,9 +1056,13 @@ def prefill_time_split(torch, prefill, params, tokens):
         end.record()
         torch.cuda.synchronize()
     wall = start.elapsed_time(end)
-    by_kind, other = {}, {}
+    by_kind, other, ops, backward = {}, {}, {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
+            if e.key.startswith("autograd::engine::evaluate_function: "):
+                backward[e.key.split(": ", 1)[1]] = e.device_time_total / 1e3
+            elif e.self_device_time_total > 0:
+                ops[e.key] = e.self_device_time_total / 1e3
             continue
         low, ms = e.key.lower(), e.self_device_time_total / 1e3
         if "flash_kernel" in low:
@@ -1055,8 +1078,11 @@ def prefill_time_split(torch, prefill, params, tokens):
     busy = sum(by_kind.values())
     if busy == 0.0:
         return {}
-    top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
-    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall, "by_kind": by_kind, "top_other": top}
+    def top(d, k):
+        return sorted(d.items(), key=lambda kv: -kv[1])[:k]
+
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall, "by_kind": by_kind,
+            "top_other": top(other, 5), "top_ops": top(ops, 8), "top_backward": top(backward, 6)}
 
 
 def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref):
@@ -1118,7 +1144,7 @@ def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, 
             raise AssertionError(f"{key} prefill launched {launches}, want {cfg.n_layers} of each; plain routes "
                                  f"taken for autograd {dict(kernels.grad_routes)}, want none")
         ms, peak = start.elapsed_time(end), torch.cuda.max_memory_allocated()
-        split = prefill_time_split(torch, prefill, params, tokens)
+        split = time_split(torch, prefill, params, tokens)
         rows[f"{key}_split"] = split
         if not split:
             print(f"prefill {key} time split: not measured (the profiler recorded no kernel)")
@@ -2024,7 +2050,7 @@ def lm_zoo_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref
     distinct kernel call of the bf16 prefill (and of Whisper's f32 one)
     held against its plain version and timed (``LMBench``); gemma2-2b and
     mamba2-2.7b's bf16 prefills split by kind of kernel
-    (``prefill_time_split``); decode against ``__call__`` at the JAX
+    (``time_split``); decode against ``__call__`` at the JAX
     package's pin (atol 5e-2, rtol 1e-2) for gemma2-2b (through
     ``greedy_generate``), mamba2-2.7b and whisper-small. Returns rows."""
     import numpy as np
@@ -2148,7 +2174,7 @@ def lm_zoo_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref
               f"{row['tflop_s']:.1f} TFLOP/s ({flops / 1e12:.2f} TFLOP, launch.analytic), peak "
               f"{peak / 2**30:.2f} GiB | {smi}")
         if arch in ("gemma2_2b", "mamba2_2_7b"):
-            split = prefill_time_split(torch, lambda p, _t: run16(p), params, None)
+            split = time_split(torch, lambda p, _t: run16(p), params, None)
             row["bf16_split"] = split
             if not split:
                 print("  bf16 prefill time split: not measured (the profiler recorded no kernel)")
@@ -2211,6 +2237,268 @@ def lm_zoo_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref
         row["seconds"] = time.perf_counter() - t_arch
         print(f"  [{arch} time] {row['seconds']:.1f} s")
         rows[arch] = row
+    return rows
+
+
+# LM training on the card (``lm_train_phase``): gemma2-2b at full width and
+# depth through the training launcher, batch x sequence, bf16 activations,
+# remat on (the config's default); steps with one micro-batch, then with two
+LM_TRAIN_B, LM_TRAIN_S = 4, 1024
+LM_TRAIN_RUNS = ((1, 6), (2, 4))  # (micro-batches, steps)
+# Step 1 of gemma2-2b (full width, 2 layers, f32, TF32 off, 2 x 256) on the
+# card against the CPU, fixed before the first run: the two devices run the
+# same ops in f32 and differ in summation order only (cuBLAS against the
+# CPU's BLAS, reduction trees, the embedding backward's scatter), a few f32
+# ulps per accumulated term (2^-24 sqrt(K), K <= 9216: ~1e-6 relative); so
+# the loss within rtol 1e-4 (train_phase's pin) and each gradient leaf's
+# relative Frobenius difference within 1e-4 (the f32 pin of the prefill
+# checks, PREFILL_F32_TOL)
+LM_STEP1_B, LM_STEP1_S = 2, 256
+LM_STEP1_LOSS_RTOL, LM_STEP1_GRAD_TOL = 1e-4, 1e-4
+# one bf16 step of each other family at full width and 2 layers (Whisper: 2
+# encoder and 2 decoder layers, its 1500 frames and 448 text positions)
+LM_TRAIN_FAMILIES = (("hymba_1_5b", 2, 1024), ("mamba2_2_7b", 2, 1024), ("whisper_small", 2, 448))
+
+
+class _RecordingOptimizer:
+    """An optimizer that keeps the gradients it is given, then updates as
+    ``opt`` does."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return self.opt.update(grads, state, params)
+
+
+def _lm_batch(torch, rng, cfg, B, S, dev, whisper=False):
+    import numpy as np
+
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+             for k in ("tokens", "labels")}
+    if whisper:
+        batch["frames"] = torch.from_numpy(rng.standard_normal((B, cfg.n_frames, cfg.d_model), np.float32)).to(dev)
+    return batch
+
+
+def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
+    """LM training on the card (item 12 of the docstring). Returns rows."""
+    import sys as _sys
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.data import FailingIterator, token_batches
+    from repro_torch.launch.supervisor import supervise
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.nn.module import param_count, tree_leaves, tree_map
+    from repro_torch.train import (AdamW, LoopConfig, make_lm_train_step, restore_checkpoint,
+                                   run_train_loop)
+
+    rows = {}
+    cpu = torch.device("cpu")
+
+    def reset():
+        attn_ops.reset_launches()
+        ssd_ops.reset_launches()
+        kernels.grad_routes.clear()
+
+    def no_launches(what):
+        got = {**attn_ops.launches, **ssd_ops.launches}
+        if any(got.values()):
+            raise AssertionError(f"{what}: kernel launches under autograd {got}, want none")
+        return dict(kernels.grad_routes)
+
+    # ---- gemma2-2b, full width and depth, through the launcher
+    spec = get_arch("gemma2_2b")
+    init = build_model(spec.config).init(torch.Generator().manual_seed(0))  # the launcher's draw, on the host
+    n = param_count(init)
+    if n != spec.config.n_params():
+        raise AssertionError(f"gemma2-2b: {n} parameters, want {spec.config.n_params()}")
+    for n_micro, steps in LM_TRAIN_RUNS:
+        argv = ["--arch", "gemma2_2b", "--steps", str(steps), "--batch", str(LM_TRAIN_B), "--seq", str(LM_TRAIN_S),
+                "--n-micro", str(n_micro), "--log-every", "1", "--device", str(dev)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        out = train_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        routes = no_launches(f"gemma2-2b training, n_micro {n_micro}")
+        hist = out.history
+        if out.step != steps or len(hist) != steps or not all(math.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"gemma2-2b n_micro {n_micro}: step {out.step}, losses {[h['loss'] for h in hist]}")
+        stuck = [i for i, (a, b) in enumerate(zip(tree_leaves(init), tree_leaves(out.params)))
+                 if bool(torch.equal(a, b.to(cpu)))]
+        if stuck:
+            raise AssertionError(f"gemma2-2b n_micro {n_micro}: leaves {stuck} unchanged after {steps} steps")
+        ms = [h["time"] * 1e3 for h in hist]
+        step_ms = sum(ms[1:]) / len(ms[1:])
+        split = {}
+        if n_micro == 1:  # one more step of the trained state under torch.profiler
+            step = make_lm_train_step(build_model(dataclasses.replace(spec.config, act_dtype=torch.bfloat16)),
+                                      AdamW(lr=1e-4, weight_decay=0.01), donate=True)
+            batch = _lm_batch(torch, np.random.default_rng(3), spec.config, LM_TRAIN_B, LM_TRAIN_S, dev)
+            split = time_split(torch, lambda p, b: step(p, out.opt_state, b), out.params, batch)
+            del step, batch
+        row = {"n_micro": n_micro, "steps": steps, "batch": [LM_TRAIN_B, LM_TRAIN_S], "params": n,
+               "losses": [h["loss"] for h in hist], "ms": ms, "step_ms": step_ms,
+               "tokens_per_s": LM_TRAIN_B * LM_TRAIN_S / (step_ms / 1e3), "peak_bytes": peak,
+               "grad_routes": routes, "wall_s": wall, "split": split}
+        rows[f"gemma2_2b n_micro {n_micro}"] = row
+        print(f"gemma2-2b train ({n:,} parameters, full depth, {LM_TRAIN_B} x {LM_TRAIN_S} tokens, bf16, remat, "
+              f"n_micro {n_micro}, launch.train.main): {steps} steps, loss {hist[0]['loss']:.4f} -> "
+              f"{hist[-1]['loss']:.4f} (all finite), all {len(tree_leaves(init))} leaves changed; step ms "
+              f"{step_ms:.2f} (steps 2-{steps}, synchronised; step 1 {ms[0]:.2f}), {row['tokens_per_s']:,.0f} "
+              f"tokens/s, peak {peak / 2**30:.2f} GiB; kernel launches 0, plain routes taken under autograd "
+              f"{json.dumps(routes)} ({routes.get('flash_attention', 0) / steps:g} flash a step: "
+              f"{spec.config.n_layers} layers x {n_micro} micro-batches x forward and remat's recompute); "
+              f"main {wall:.1f} s | {smi}")
+        if split:
+            kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["by_kind"].items(), key=lambda kv: -kv[1]))
+            print(f"  one more step under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy "
+                  f"{split['busy_ms']:.2f} ms ({kinds}), idle {100 * split['idle_share']:.1f}%; largest other: "
+                  + "; ".join(f"{k} {v:.2f}" for k, v in split["top_other"]))
+            print("  its device ms by op (own kernels): " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_ops"]))
+            print("  by backward node (with its ops): " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_backward"]))
+        elif n_micro == 1:
+            print("  step time split: not measured (the profiler recorded no kernel)")
+        del out
+        torch.cuda.empty_cache()
+    del init
+
+    # ---- step 1 on the card against the CPU (f32, 2 layers)
+    cfg = dataclasses.replace(spec.config, n_layers=2, act_dtype=torch.float32)
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(0))
+    batch_np = _lm_batch(torch, np.random.default_rng(1), cfg, LM_STEP1_B, LM_STEP1_S, cpu)
+    def step1(d):
+        """(metrics, gradient leaves, parameter leaves after the step), on the host."""
+        opt = _RecordingOptimizer(AdamW(lr=1e-3, weight_decay=0.01))
+        p = tree_map(lambda t: t.to(d), p_cpu)
+        reset()
+        new, _, m = make_lm_train_step(model, opt)(p, opt.opt.init(p), tree_map(lambda t: t.to(d), batch_np))
+        no_launches(f"step 1 on {d}")
+        return ({k: float(v) for k, v in m.items()}, [g.to(cpu) for g in tree_leaves(opt.grads)],
+                [t.to(cpu) for t in tree_leaves(new)])
+
+    (mc, gc, pc), (md, gd, pd) = step1(cpu), step1(dev)
+    torch.cuda.empty_cache()
+    loss_rel = _rel(md["loss"], mc["loss"])
+    grad_rel = [_rel_norm(a, b) for a, b in zip(gd, gc)]
+    worst = max(range(len(grad_rel)), key=grad_rel.__getitem__)
+    paths = _paths(p_cpu)
+    dp = max(float((a - b).abs().max()) for a, b in zip(pd, pc))
+    rows["step1_vs_cpu"] = {"loss": [md["loss"], mc["loss"]], "loss_rel": loss_rel, "grad_rel": grad_rel,
+                            "worst_leaf": paths[worst], "grad_norm": [md["grad_norm"], mc["grad_norm"]],
+                            "max_param_delta": dp}
+    print(f"gemma2-2b step 1 (full width, 2 layers, f32, {LM_STEP1_B} x {LM_STEP1_S}), card vs CPU: loss "
+          f"{md['loss']:.6f} / {mc['loss']:.6f} (rel {loss_rel:.2e}, <= {LM_STEP1_LOSS_RTOL:g}), gradient leaves' "
+          f"relative Frobenius difference: worst {grad_rel[worst]:.3e} ({paths[worst]}, <= {LM_STEP1_GRAD_TOL:g}), "
+          f"median {sorted(grad_rel)[len(grad_rel) // 2]:.3e} over {len(grad_rel)} leaves; grad_norm "
+          f"{md['grad_norm']:.6f} / {mc['grad_norm']:.6f}; parameters after AdamW max |delta| {dp:.3e}")
+    if not loss_rel <= LM_STEP1_LOSS_RTOL or not grad_rel[worst] <= LM_STEP1_GRAD_TOL:
+        raise AssertionError(f"gemma2-2b step 1: card vs CPU beyond tolerance: loss {loss_rel:.3e}, "
+                             f"{ {paths[i]: r for i, r in enumerate(grad_rel) if not r <= LM_STEP1_GRAD_TOL} }")
+    del p_cpu, gc, gd, pc, pd
+
+    # ---- one bf16 step of each other family at full width, 2 layers
+    for arch, depth, S in LM_TRAIN_FAMILIES:
+        fspec = get_arch(arch)
+        whisper = fspec.family == "whisper"
+        layers = {"n_enc_layers": depth, "n_dec_layers": depth} if whisper else {"n_layers": depth}
+        fcfg = dataclasses.replace(fspec.config, act_dtype=torch.bfloat16, **layers)
+        fmodel = build_model(fcfg)
+        params = fmodel.init(torch.Generator(dev).manual_seed(0))
+        opt = AdamW(lr=1e-3, weight_decay=0.01)
+        state = opt.init(params)
+        step = make_lm_train_step(fmodel, opt, donate=True)
+        rng = np.random.default_rng(2)
+        batches = [_lm_batch(torch, rng, fcfg, 2, S, dev, whisper) for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i, batch in enumerate(batches):
+            reset()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            loss = m["loss"].item()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not math.isfinite(loss):
+                raise AssertionError(f"{arch} step {i + 1}: loss {loss}")
+        peak = torch.cuda.max_memory_allocated()
+        routes = no_launches(f"{arch} training step")
+        want = {"ssd"} if fspec.family == "mamba2" else {"flash_attention"} if whisper else {"flash_attention", "ssd"}
+        if set(routes) != want:
+            raise AssertionError(f"{arch}: plain routes taken {routes}, want {sorted(want)}")
+        rows[arch] = {"layers": depth, "batch": [2, S], "params": param_count(params), "loss": loss,
+                      "ms": times, "peak_bytes": peak, "grad_routes": routes}
+        print(f"{arch} train step ({param_count(params):,} parameters, full width, {depth} layers"
+              f"{' each side, frames (2, ' + str(fcfg.n_frames) + ', ' + str(fcfg.d_model) + ')' if whisper else ''}, "
+              f"2 x {S} tokens, bf16, remat): step 2 loss {loss:.4f} (finite, new tokens), {times[1]:.2f} ms (step 1 "
+              f"{times[0]:.2f}), peak {peak / 2**30:.2f} GiB; kernel launches 0, plain routes a step "
+              f"{json.dumps(routes)} | {smi}")
+        del params, state, step, batches, batch
+        torch.cuda.empty_cache()
+
+    # ---- the loop's fault path: rescue checkpoint, bit-exact restore, resume
+    scfg = dataclasses.replace(spec.smoke, act_dtype=torch.float32)
+    smodel = build_model(scfg)
+    opt = AdamW(lr=1e-3, weight_decay=0.01)
+    real = make_lm_train_step(smodel, opt, donate=True)
+    last = {}
+
+    def step(p, s, b):
+        out = real(p, s, b)
+        last["tree"], last["step"] = {"params": out[0], "opt_state": out[1]}, int(out[1]["step"])
+        return out
+
+    data = token_batches(4, 64, scfg.vocab, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(data).items()} for _ in range(16)]
+
+    def fresh():
+        p = smodel.init(torch.Generator().manual_seed(0), device=dev)
+        return p, opt.init(p)
+
+    def same(a, b):
+        return all(x.device == y.device and torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    quiet = []
+    with tempfile.TemporaryDirectory() as d:
+        out = run_train_loop(step, *fresh(), iter(batches), LoopConfig(8, d, ckpt_every=4, log_every=100),
+                             log_fn=quiet.append)
+        tree, at, _ = restore_checkpoint(d, last["tree"])
+        if out.step != 8 or at != 8 or not same(tree, {"params": out.params, "opt_state": out.opt_state}):
+            raise AssertionError(f"loop: step {out.step}, checkpoint at {at}, restored tree differs from the saved one")
+        try:
+            run_train_loop(step, *fresh(), FailingIterator(iter(batches[8:]), 2), LoopConfig(16, d, ckpt_every=4),
+                           log_fn=quiet.append)
+            raise AssertionError("the injected data failure did not reach the caller")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        tree, at, _ = restore_checkpoint(d, last["tree"])
+        if at != 10 or last["step"] != 10 or not same(tree, last["tree"]):
+            raise AssertionError(f"rescue checkpoint at {at}, last step {last['step']}: restored tree differs")
+        out = run_train_loop(step, *fresh(), iter(batches[10:]), LoopConfig(16, d, ckpt_every=4), log_fn=quiet.append)
+        if out.step != 16 or "[loop] resumed from step 10" not in quiet:
+            raise AssertionError(f"resumed run reached step {out.step}; log {quiet}")
+        marker = Path(d) / "ran"
+        rc = supervise([_sys.executable, "-c", f"import pathlib, sys; m = pathlib.Path({str(marker)!r}); "
+                        "ok = m.exists(); m.touch(); sys.exit(0 if ok else 3)"], max_restarts=2, backoff=0.0,
+                       log=quiet.append)
+        if rc != 0:
+            raise AssertionError(f"supervise returned {rc}: {quiet}")
+    rows["fault_path"] = {"rescue_step": 10, "resumed_to": 16, "supervise_rc": rc}
+    print("loop fault path (gemma2-2b smoke, f32, on the card): checkpoint at step 8 restores bit for bit; a data "
+          "failure at step 10 leaves a rescue checkpoint that restores the last step's tree bit for bit; the resumed "
+          "run reaches step 16; supervise restarts a command that fails once and returns 0")
     return rows
 
 
@@ -2598,6 +2886,10 @@ def main() -> int:
     zoo_rows = lm_zoo_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref)
     print(f"LM zoo phase: {time.perf_counter() - t_zoo:.1f} s")
     lap("LM zoo")
+    print("-- LM training: gemma2-2b at full width and depth through launch.train, step 1 vs the CPU, hymba, mamba2 "
+          "and whisper steps, the loop's fault path (TF32 off)")
+    train_lm_rows = lm_train_phase(torch, smi, dev, attn_ops, ssd_ops)
+    lap("LM training")
 
     kernels = []
     for n in REPLACES:
@@ -2635,7 +2927,7 @@ def main() -> int:
              "bf16_forward": {"launches": bf16_launches, "checks": bf16_checks},
              "hymba_prefill": prefill_rows, "lm_per_prefill": lm_tot, "hymba_decode": decode_row,
              "flash_ptxas": flash_tc, "launcher": launcher_rows, "served_ab": served_rows,
-             "fleets": fleet_rows, "lm_zoo": zoo_rows,
+             "fleets": fleet_rows, "lm_zoo": zoo_rows, "lm_train": train_lm_rows,
              "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

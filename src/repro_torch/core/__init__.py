@@ -1,7 +1,47 @@
-# Engine-aware multi-model scheduling, planning and staged execution.
+# Engine-aware multi-model scheduling, planning and staged execution: the
+# JAX package's namespace (less the TPU engine pair, which waits for an H100
+# engine pair) plus the device pool and the submesh placers.
 from .api import plan
+from .graph import LayerGraph, LayerMeta, conv_meta, pointwise_meta
 from .engine import DevicePool, EngineSpec, jetson_orin_engines
-from .graph import LayerGraph, LayerMeta
-from .pipeline import StagedModel, TickLog, TwoModelPipeline, pix2pix_staged, submesh_placers, yolo_staged
-from .plan_ir import PlanIR, PlanSegment
+from .constraints import (
+    DLA_ANALOGUE_CONSTRAINTS,
+    TPU_SMALL_CONSTRAINTS,
+    DeconvPaddingZero,
+    DtypeConstraint,
+    KernelSizeRange,
+    LaneAlignment,
+    StaticShapesOnly,
+    Violation,
+    check_graph,
+)
 from .surgery import RULES, SurgeryReport, apply_surgery, substitute_pix2pix
+from .cost_model import (
+    ANALYTIC,
+    AnalyticCost,
+    BlendedCost,
+    CostProvider,
+    MeasuredCost,
+    OnlineCost,
+    SegmentCostCache,
+    balanced_partition_point,
+    graph_time,
+    layer_time,
+    make_cost_provider,
+    segment_cost,
+    transfer_time,
+)
+from .plan_ir import PlanIR, PlanSegment, ir_from_routes, make_plan_ir, translate_ir
+from .scheduler import (
+    HaxConnResult,
+    ModelRoute,
+    NModelPlan,
+    RouteSpec,
+    Schedule,
+    haxconn_schedule,
+    naive_schedule,
+    nmodel_schedule,
+    peer_utilization,
+    standalone_schedule,
+)
+from .pipeline import StagedModel, TickLog, TwoModelPipeline, pix2pix_staged, submesh_placers, yolo_staged

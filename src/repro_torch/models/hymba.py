@@ -20,7 +20,7 @@ from typing import Any
 import torch
 
 from ..nn import MLP, Attention, Embedding, Mamba2Block, Module, RMSNorm, Stacked
-from ..nn.module import layer, tree_map, tree_stack
+from ..nn.module import checkpointed, layer, tree_map, tree_stack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +46,8 @@ class HymbaConfig:
     tie_embeddings: bool = True
     act_dtype: Any = torch.bfloat16
     attn_chunk: int = 1024
+    remat: bool = True  # checkpoint each block under autograd
+    act_spec: Any = None  # the JAX package's sharding constraint: waits for the distributed stack
 
     def windows(self):
         return tuple(0 if i in self.global_layers else self.local_window for i in range(self.n_layers))
@@ -74,6 +76,9 @@ class HymbaConfig:
         mlp = 3 * d * self.d_ff
         per_layer = attn + mamba + mlp + 4 * d
         return self.vocab * d + self.n_layers * per_layer + d
+
+    def n_active_params(self):
+        return self.n_params()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,12 +167,13 @@ class HymbaLM(Module):
         c = self.cfg
         positions, index = self._positions(tokens, positions)
         x = self._embed(p, tokens)
-        blk = HymbaBlock(c)
+        blk = checkpointed(HymbaBlock(c), c.remat)
         for i, w in enumerate(c.windows()):
             x = blk(layer(p["blocks"], i), x, positions, w, index_positions=index)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
-            return RMSNorm(c.d_model, c.norm_eps)(p["final_norm"], x), torch.zeros((), dtype=torch.float32)
-        return self._logits(p, x), torch.zeros((), dtype=torch.float32)
+            return RMSNorm(c.d_model, c.norm_eps)(p["final_norm"], x), aux
+        return self._logits(p, x), aux
 
     def head(self, p, x):
         return Embedding(self.cfg.vocab, self.cfg.d_model).attend(p["embed"], x)

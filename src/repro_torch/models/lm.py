@@ -24,16 +24,16 @@ from typing import Any
 import torch
 
 from ..nn import MLP, Attention, Embedding, Linear, MLAAttention, MoE, Module, RMSNorm, Stacked
-from ..nn.module import layer, tree_map, tree_stack
+from ..nn.module import checkpointed, layer, tree_map, tree_stack
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The JAX package's ``LMConfig``, field for field. ``act_dtype`` is a
-    torch dtype. ``remat``, ``remat_policy`` and ``act_spec`` (activation
-    checkpointing and the sharding constraint of the JAX package's training
-    path) are kept so that configs copy across; the serving path ignores
-    them."""
+    torch dtype. ``remat`` and ``remat_policy`` checkpoint each block's
+    activations under autograd (``nn.module.checkpointed``); ``act_spec``
+    (the JAX package's sharding constraint) is kept so that configs copy
+    across, and waits for the distributed stack."""
 
     name: str
     n_layers: int
@@ -295,7 +295,8 @@ class TransformerLM(Module):
         x = self._embed(p, tokens, extra_embeds, embed_positions)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk, bp, w in self._layers(p):
-            x, aux = blk(bp, x, positions, w, index_positions=index)
+            x, aux = checkpointed(blk, self.cfg.remat, self.cfg.remat_policy)(bp, x, positions, w,
+                                                                              index_positions=index)
             aux_total = aux_total + aux
         x = self._final(p, x)
         if return_hidden:

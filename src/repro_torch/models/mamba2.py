@@ -15,14 +15,15 @@ from typing import Any
 import torch
 
 from ..nn import Embedding, Mamba2Block, Module, RMSNorm, Stacked
-from ..nn.module import layer, tree_map, tree_stack
+from ..nn.module import checkpointed, layer, tree_map, tree_stack
 
 
 @dataclasses.dataclass(frozen=True)
 class Mamba2Config:
     """The JAX package's ``Mamba2Config``, field for field; ``act_dtype`` is
-    a torch dtype, and ``remat``/``act_spec`` (the JAX training path's) are
-    ignored by the serving path."""
+    a torch dtype, ``remat`` checkpoints each layer under autograd, and
+    ``act_spec`` (the JAX package's sharding constraint) waits for the
+    distributed stack."""
 
     name: str
     n_layers: int
@@ -116,7 +117,7 @@ class Mamba2LM(Module):
 
     def __call__(self, p, tokens, positions=None, return_hidden=False):
         x = self._embed(p, tokens)
-        blk = Mamba2LayerWrapped(self.cfg)
+        blk = checkpointed(Mamba2LayerWrapped(self.cfg), self.cfg.remat)
         for i in range(self.cfg.n_layers):
             x = blk(layer(p["blocks"], i), x)
         x = self._final(p, x)

@@ -19,7 +19,7 @@ from typing import Any
 import torch
 
 from ..nn import MLP, Attention, Embedding, LayerNorm, Module, ParamSpec, Stacked, normal_init
-from ..nn.module import layer, tree_map, tree_stack
+from ..nn.module import checkpointed, layer, tree_map, tree_stack
 
 
 def sinusoid_pos(n: int, d: int, device=None):
@@ -34,8 +34,8 @@ def sinusoid_pos(n: int, d: int, device=None):
 @dataclasses.dataclass(frozen=True)
 class WhisperConfig:
     """The JAX package's ``WhisperConfig``, field for field; ``act_dtype``
-    is a torch dtype, and ``remat`` (the JAX training path's) is ignored by
-    the serving path."""
+    is a torch dtype, and ``remat`` checkpoints each encoder and decoder
+    block under autograd."""
 
     name: str
     n_enc_layers: int
@@ -162,7 +162,7 @@ class WhisperModel(Module):
         """frames: (B, n_frames, d) precomputed embeddings (conv-stub)."""
         c = self.cfg
         x = frames.to(c.act_dtype) + sinusoid_pos(frames.shape[1], c.d_model, frames.device).to(c.act_dtype)
-        blk = EncBlock(c)
+        blk = checkpointed(EncBlock(c), c.remat)
         for i in range(c.n_enc_layers):
             x = blk(layer(p["enc_blocks"], i), x)
         return c.norm()(p["ln_enc"], x)
@@ -186,7 +186,7 @@ class WhisperModel(Module):
         c = self.cfg
         enc_out = self.encode(p, frames)
         x = self._dec_embed(p, tokens)
-        blk = DecBlock(c)
+        blk = checkpointed(DecBlock(c), c.remat)
         for i in range(c.n_dec_layers):
             x = blk(layer(p["dec_blocks"], i), x, enc_out)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)

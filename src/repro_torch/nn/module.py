@@ -10,6 +10,8 @@
   allocated.
 - ``Stacked(module, n)`` stacks ``n`` copies on a leading layer axis (the
   JAX package scans over it; the port's models loop over it).
+- ``checkpointed(fn, remat, policy)`` is ``jax.checkpoint``'s counterpart
+  for a block call under autograd.
 - ``from_jax(tree)`` carries a JAX parameter tree (as numpy arrays) over
   unchanged, because ``jax.random`` and ``torch.Generator`` draw different
   numbers from the same seed.
@@ -19,11 +21,13 @@ Modules are pure: ``__call__(params, *args)``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 # ---------------------------------------------------------------------------
 # Initializers: fn(generator, shape, dtype) -> tensor on the generator's device
@@ -208,6 +212,46 @@ def tree_unflatten(tree, leaves):
         return next(it)
 
     return fill(tree)
+
+
+def checkpointed(fn: Callable, remat: bool, policy: str = "full") -> Callable:
+    """``fn`` under activation checkpointing, as the JAX models wrap a block
+    in ``jax.checkpoint`` when their config's ``remat`` is set: its
+    activations are dropped after the forward and recomputed in backward
+    (``torch.utils.checkpoint``, non-reentrant). Only where autograd
+    records (grad mode on and an argument leaf requires grad): otherwise
+    ``fn`` runs as it is, so a call under ``torch.no_grad()`` takes the same
+    ops and kernels with ``remat`` on or off. ``policy="dots"`` keeps the
+    matmul outputs (``aten.mm``/``aten.addmm``) and recomputes the rest, as
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` does."""
+    if not remat:
+        return fn
+    if policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+
+    def call(*args, **kwargs):
+        leaves = tree_leaves((args, kwargs))
+        if not (torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in leaves)):
+            return fn(*args, **kwargs)
+        extra = {"context_fn": _dots_contexts()} if policy == "dots" else {}
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **extra, **kwargs)
+
+    return call
+
+
+def _dots_contexts():
+    ckpt = torch.utils.checkpoint
+    if not hasattr(ckpt, "create_selective_checkpoint_contexts"):
+        raise NotImplementedError(
+            'remat_policy="dots" needs torch.utils.checkpoint.create_selective_checkpoint_contexts, '
+            f"which torch {torch.__version__} lacks"
+        )
+    saved = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return ckpt.CheckpointPolicy.MUST_SAVE if op in saved else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(ckpt.create_selective_checkpoint_contexts, policy)
 
 
 def param_count(params) -> int:

@@ -4,13 +4,28 @@
 # the fleets (.fleet in process, .multiproc in worker processes).
 # `build_server` is the one-call facade; the open-loop pieces (traffic,
 # SLOs, admission) live in .traffic/.admission.
-from .admission import ADMIT, DROP, SHED_RES, SHED_ROUTE, AdmissionConfig
-from .batching import BatchConfig
+from .admission import ADMIT, DROP, SHED_RES, SHED_ROUTE, AdmissionConfig, subsample_frame
+from .batching import BatchConfig, bucket_for
 from .demo import build_pix_yolo_serving, build_replanner, merge_flags_for
 from .executor import Completion, Flight, SegmentObservation, StreamExecutor, SwapEvent
 from .facade import ServerBundle, build_server
 from .fleet import FleetRouter, FleetServer, LocalReplica
-from .metrics import fleet_report, merge_metrics, metrics_from_payload, router_imbalance
+from .metrics import (
+    ServeMetrics,
+    StreamMetrics,
+    SwapStall,
+    TickStats,
+    TierMetrics,
+    engine_wait_summary,
+    fleet_report,
+    merge_metrics,
+    metrics_from_payload,
+    overlap_summary,
+    percentile,
+    router_imbalance,
+    segment_summary,
+    swap_stall_summary,
+)
 from .multiproc import (
     ProcFleetServer,
     RemoteReplica,
@@ -22,5 +37,11 @@ from .multiproc import (
 )
 from .replanner import ReplanConfig, ReplanEvent, Replanner
 from .server import MultiStreamServer, Request
-from .streams import StreamSpec
-from .traffic import SLOPolicy, TrafficConfig
+from .streams import FrameQueue, StreamSpec
+from .traffic import (
+    SLOPolicy,
+    TrafficConfig,
+    arrival_times,
+    merged_arrivals,
+    run_open_loop,
+)

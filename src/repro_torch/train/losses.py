@@ -1,12 +1,59 @@
-"""Losses: Pix2Pix GAN objectives and the simplified detection loss.
-
-The LM cross-entropies (``cross_entropy``, ``chunked_cross_entropy``) come
-with the LM model zoo.
-"""
+"""Losses: the LM cross-entropies (``cross_entropy``, and
+``chunked_cross_entropy``, which fuses the LM head with the loss over
+sequence chunks), the Pix2Pix GAN objectives and the simplified detection
+loss."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
+
+
+def _token_nll(logits, labels):
+    """Per-token NLL (..., V) -> (...): the max detached, the shifted
+    logits in fp32 (subtracted in the logits' dtype, then cast, as the JAX
+    package computes them), and the gold logit picked by its label."""
+    m = torch.amax(logits.detach(), dim=-1, keepdim=True)
+    shifted = (logits - m).float()
+    logz = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+    gold = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
+    return logz - gold
+
+
+def _masked_mean(nll, mask):
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """logits (B,S,V) (any float dtype), labels (B,S) int -> the mean NLL in
+    fp32, over the tokens where ``mask`` is set (a mask of zeros gives 0)."""
+    return _masked_mean(_token_nll(logits, labels), mask)
+
+
+def chunked_cross_entropy(head_fn, params, hidden, labels, mask=None, chunk: int = 512):
+    """The LM head fused with the loss over sequence chunks: the (B, S, V)
+    logits never exist at once. Each (B, chunk, V) block is computed by
+    ``head_fn(params, h)`` for a hidden chunk h (B, chunk, d), reduced to
+    per-token NLL, and recomputed in backward (``torch.utils.checkpoint``,
+    non-reentrant, where autograd records). ``S % chunk`` or ``S <= chunk``
+    falls through to ``cross_entropy`` on the whole head, as in the JAX
+    package."""
+    S = labels.shape[1]
+    if S % chunk or S <= chunk:
+        return cross_entropy(head_fn(params, hidden), labels, mask)
+
+    def body(h, lb):
+        return _token_nll(head_fn(params, h), lb)
+
+    grad = torch.is_grad_enabled()
+    nll = []
+    for i in range(0, S, chunk):
+        h, lb = hidden[:, i : i + chunk], labels[:, i : i + chunk]
+        nll.append(torch.utils.checkpoint.checkpoint(body, h, lb, use_reentrant=False) if grad else body(h, lb))
+    return _masked_mean(torch.cat(nll, dim=1), mask)
 
 
 def bce_with_logits(logits, targets):

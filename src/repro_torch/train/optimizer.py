@@ -6,7 +6,8 @@ clipping (1.0 by default) and schedule support, Adam, and SGD. States are
 plain trees beside the params. The step count and the schedule's learning
 rate are 0-d CPU tensors (int32 and float32, as JAX's), so an update on the
 card never waits for the host. Updates run under ``torch.no_grad()`` and
-return new tensors; nothing is updated in place.
+return new tensors; ``AdamW.update_`` is the same update written into the
+buffers it is given (the JAX launcher donates them to its jitted step).
 
 (``abstract_state`` comes with the distributed stack.)
 """
@@ -116,6 +117,49 @@ class AdamW:
             new_state["master"] = tree_unflatten(params, [o[3] for o in out])
         new_p = tree_unflatten(params, [o[0] for o in out])
         return new_p, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+    @torch.no_grad()
+    def update_(self, grads, state, params):
+        """``update`` in place, leaf by leaf: the gradients are clipped in
+        their buffers, then each parameter, its moments and its master copy
+        are written into theirs, so no second copy of the parameters or of
+        the optimizer state ever exists (``update`` holds both trees at
+        once). The same ops in the same order as ``update``: bit-equal.
+        Returns ``(params, state, info)``, the trees passed in, with
+        ``state["step"]`` advanced."""
+        step = state["step"] + 1
+        gnorm = torch.zeros((), dtype=torch.float32)
+        flat_g = tree_leaves(grads)
+        if self.grad_clip_norm is not None:
+            gnorm = global_norm(grads)
+            scale = torch.clamp_max(self.grad_clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
+            for g in flat_g:
+                if g.dtype == torch.float32:
+                    g.mul_(scale)
+                else:
+                    g.copy_((g.float() * scale).to(g.dtype))
+        b1, b2 = self.b1, self.b2
+        bc1 = 1.0 - b1 ** step.float()
+        bc2 = 1.0 - b2 ** step.float()
+        lr = _lr(self.lr, step)
+        flat_p = tree_leaves(params)
+        flat_ma = tree_leaves(state["master"]) if self.master_weights else [None] * len(flat_p)
+        for p, g, m, v, master in zip(flat_p, flat_g, tree_leaves(state["m"]), tree_leaves(state["v"]), flat_ma):
+            g32 = g.float()
+            m.mul_(b1).add_((1 - b1) * g32)
+            v.mul_(b2).add_((1 - b2) * torch.square(g32))
+            del g32
+            delta = torch.div(m, bc1).div_(torch.div(v, bc2).sqrt_().add_(self.eps))
+            ref = master if master is not None else p.float()
+            if self.weight_decay:
+                delta.add_(self.weight_decay * ref)
+            ref.sub_(delta.mul_(lr))
+            del delta
+            if ref is not p:
+                p.copy_(ref)
+        state["step"] = step
+        return params, state, {"grad_norm": gnorm, "lr": lr}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,19 +10,20 @@ optimizer state match the reference. Training runs the plain ops
 (``impl``/``deconv_backend="xla"``): the kernels have no backward and
 refuse to run under autograd.
 
-The LM serving entry points (``make_lm_prefill``, ``make_lm_decode_step``,
-``greedy_generate``) serve every LM family (``TransformerLM``,
+The LM entry points serve and train every LM family (``TransformerLM``,
 ``Mamba2LM``, ``HymbaLM``, ``WhisperModel``: each has the same method
-names) under ``torch.no_grad()`` where the parameters are: on the card
-their prefills go through the LM kernels. The LM training step factories
-come with LM training.
+names). ``make_lm_prefill``, ``make_lm_decode_step`` and
+``greedy_generate`` run under ``torch.no_grad()`` where the parameters
+are: on the card their prefills go through the LM kernels.
+``make_lm_train_step`` differentiates the models, whose attention and SSD
+modules then take the plain ops on both devices (``kernels.grad_route``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..nn.module import tree_leaves, tree_map, tree_unflatten
-from .losses import pix2pix_d_loss, pix2pix_g_loss, yolo_loss
+from .losses import chunked_cross_entropy, pix2pix_d_loss, pix2pix_g_loss, yolo_loss
 
 
 def _trainable(tree):
@@ -85,6 +86,70 @@ def make_yolo_train_step(model, optimizer):
         grads = _grads(loss, p)
         params, opt_state, opt_info = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss.detach(), "n_pos": parts["n_pos"], **opt_info}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+
+def make_lm_train_step(model, optimizer, aux_weight: float = 0.01, n_micro: int = 1, loss_chunk: int = 512,
+                       donate: bool = False):
+    """batch = {"tokens": (B,S), "labels": (B,S), optional "mask", "positions",
+    "extra_embeds", "embed_positions" (VLM), "frames" (Whisper)}.
+
+    ``step(params, opt_state, batch) -> (params, opt_state, metrics)`` with
+    metrics ``{"loss", "ce", "aux", **the optimizer's info}``; the loss is
+    ``ce + aux_weight * aux``. ``loss_chunk`` fuses the LM head with the
+    loss over sequence chunks (``chunked_cross_entropy``), so the (B, S,
+    vocab) logits never exist at once. ``n_micro > 1`` accumulates the
+    gradients of ``n_micro`` micro-batches, one after another, so the
+    activations of one micro-batch are alive at a time: micro-batch ``j``
+    takes rows ``j, j + n_micro, ...`` (the rows the JAX package's
+    ``reshape(B // n, n, ...)`` then ``moveaxis`` gives it); loss, parts and
+    gradients are summed in fp32 and scaled by ``1 / n_micro``. ``donate``
+    updates through ``optimizer.update_``, into the buffers of the
+    parameters and optimizer state it is given (the JAX launcher's
+    ``donate_argnums=(0, 1)``): the caller's trees are overwritten."""
+
+    def grad_fn(params, batch):
+        p = _trainable(params)
+        kwargs = {k: batch[k] for k in ("positions", "extra_embeds", "embed_positions") if k in batch}
+        if "frames" in batch:
+            hidden, aux = model(p, batch["frames"], batch["tokens"], return_hidden=True)
+        else:
+            hidden, aux = model(p, batch["tokens"], return_hidden=True, **kwargs)
+        ce = chunked_cross_entropy(model.head, p, hidden, batch["labels"], batch.get("mask"), chunk=loss_chunk)
+        loss = ce + aux_weight * aux
+        return [loss.detach(), ce.detach(), aux.detach()], _grads(loss, p)
+
+    def accumulated(params, batch):
+        B = batch["tokens"].shape[0]
+        if B % n_micro:
+            raise ValueError(f"batch {B} does not split into {n_micro} micro-batches")
+        sums = grads = None
+        for j in range(n_micro):
+            parts, g = grad_fn(params, {k: v[j::n_micro] for k, v in batch.items()})
+            if sums is None:
+                sums, grads = [x.float() for x in parts], tree_map(lambda t: t.float(), g)
+            else:
+                sums = [a + b for a, b in zip(sums, parts)]
+                for a, b in zip(tree_leaves(grads), tree_leaves(g)):
+                    a.add_(b)
+            del parts, g  # before the next micro-batch's backward
+        inv = 1.0 / n_micro
+        for a in tree_leaves(grads):
+            a.mul_(inv)
+        return [x * inv for x in sums], grads
+
+    update = optimizer.update_ if donate else optimizer.update
+
+    def train_step(params, opt_state, batch):
+        (loss, ce, aux), grads = grad_fn(params, batch) if n_micro == 1 else accumulated(params, batch)
+        params, opt_state, opt_info = update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss, "ce": ce, "aux": aux, **opt_info}
 
     return train_step
 

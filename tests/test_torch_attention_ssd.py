@@ -32,6 +32,18 @@ from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.nn.module import from_jax  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once on the
+    machine's cores, and with as many threads as cores in each file too,
+    this file's small ops ran many times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # tests/test_kernels.py's ATTN_CASES, plus ragged lengths (no multiple of
 # the 128 tile: the JAX ops send them to the ref, the port's kernel takes
 # them), an Sq < Sk window case, D 16, and D 128 with a window edge inside

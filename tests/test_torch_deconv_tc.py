@@ -29,6 +29,18 @@ from repro_torch.kernels.deconv import kernel as dk  # noqa: E402
 from repro_torch.kernels.deconv.ref import deconv2d_ref  # noqa: E402
 from repro_torch.kernels.fused import ref as fref  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once on the
+    machine's cores, and with as many threads as cores in each file too,
+    this file's small ops ran many times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PIN = 1e-4  # the port's f32 pin, kernel against plain version (chip_smoke.Bench.run)
 BK, BN = dk.phase_bk(4), dk.PHASE_BN  # the f32 GEMM's K tile and N tile
 

@@ -27,6 +27,8 @@ CASES = {
     "multi_stream_serve_replicas": ("torch_multi_stream_serve.py",
                                     SMALL_SERVE + ["--replicas", "2", "--open-loop", "--duration", "0.3"]),
     "multi_stream_serve_workers": ("torch_multi_stream_serve.py", SMALL_SERVE + ["--workers", "2"]),
+    "lm_train": ("torch_lm_train.py", ["--device", "cpu", "--steps", "30", "--seq", "32", "--batch", "4",
+                                       "--log-every", "10"]),
 }
 
 RUN = """

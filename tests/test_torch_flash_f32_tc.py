@@ -35,6 +35,18 @@ from repro.kernels.attention.ref import attention_ref as j_attention_ref  # noqa
 from test_torch_attention_ssd import ATTN_CASES, _attn_inputs, _smoke  # noqa: E402
 from test_torch_ssd_tc import mma  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once on the
+    machine's cores, and with as many threads as cores in each file too,
+    this file's small ops ran many times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOG2E = np.float32(1.4426950408889634)
 NEG = -1e30
 ATOL, REL = 3e-4, 1e-4

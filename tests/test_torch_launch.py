@@ -31,6 +31,18 @@ from repro_torch.launch import analytic, serve  # noqa: E402
 import repro_torch.models as tm  # noqa: E402
 from repro_torch.train.steps import greedy_generate  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once on the
+    machine's cores, and with as many threads as cores in each file too,
+    this file's small ops ran many times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMALL = ["--mode", "streams", "--device", "cpu", "--img", "32", "--base", "8", "--streams", "2",
          "--yolo-streams", "1", "--frames", "2"]
 

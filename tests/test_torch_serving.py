@@ -192,6 +192,9 @@ NEW_MODULES = [
     "repro_torch.nn.moe", "repro_torch.models.lm", "repro_torch.models.mamba2", "repro_torch.models.whisper",
     *(f"repro_torch.configs.{a}" for a in ("gemma_2b", "gemma2_2b", "gemma2_27b", "phi4_mini_3_8b", "deepseek_moe_16b",
                                             "deepseek_v2_lite_16b", "qwen2_vl_7b", "mamba2_2_7b", "whisper_small")),
+    # LM training
+    "repro_torch.train.checkpoint", "repro_torch.train.loop", "repro_torch.launch.train",
+    "repro_torch.launch.supervisor",
 ]
 
 

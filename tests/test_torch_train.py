@@ -44,6 +44,17 @@ from repro_torch.core.constraints import DLA_ANALOGUE_CONSTRAINTS as T_DLA  # no
 from repro_torch.nn.module import Module, ParamSpec, tree_leaves, tree_map  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several files at once on the
+    machine's cores, and with as many threads as cores in each file too,
+    this file's small ops ran many times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
