@@ -121,12 +121,19 @@ toolkit, this
    1e-2; gemma2-2b through ``greedy_generate``);
 12. trains LMs on the card (``lm_train_phase``): gemma2-2b at full width
    and depth (2,614,341,888 parameters, seed 0) through
-   ``repro_torch.launch.train.main``, ``LM_TRAIN_B`` x ``LM_TRAIN_S``
+   ``repro_torch.launch.train.main`` (a one-rank NCCL mesh: DTensor
+   parameters and AdamW state placed by ``dist.train_shardings``, the
+   batch by ``shard_batch``), ``LM_TRAIN_B`` x ``LM_TRAIN_S``
    tokens, bf16 activations, remat on, 6 steps with one micro-batch and 4
    with two (``LM_TRAIN_RUNS``): every loss finite, every parameter leaf
    changed, ms per step (synchronised, from step 2), tokens/s, peak
    memory, no kernel launch under autograd and the plain routes taken
-   (``kernels.grad_routes``: the forward's and remat's recompute); step 1
+   (``kernels.grad_routes``: the forward's and remat's recompute); the same
+   6 steps on the plain path (plain tensors, ``make_lm_train_step`` in the
+   loop, the launcher's batches: ms, tokens/s, peak memory), and step 1
+   of the two paths from the same parameters and batch, loss and every
+   parameter within ``MESH_STEP1_RTOL``, one more mesh step under
+   ``torch.profiler``; step 1
    of gemma2-2b at 2 layers in f32 against the same step on the CPU
    (``LM_STEP1_LOSS_RTOL``, ``LM_STEP1_GRAD_TOL`` per gradient leaf); one
    bf16 step each of hymba-1.5b, mamba2-2.7b and whisper-small at full
@@ -134,7 +141,17 @@ toolkit, this
    memory, the SSD and attention plain routes); and the loop's fault path
    at the smoke gemma2-2b (a checkpoint and a rescue checkpoint after an
    injected data failure each restore bit for bit, the resumed run reaches
-   its last step, ``supervise`` restarts a command that fails once).
+   its last step, ``supervise`` restarts a command that fails once);
+13. the distributed stack on the card, one rank (``dist_phase``): the
+   launcher's ``--coordinator 127.0.0.1:<free port> --num-processes 1
+   --process-id 0`` (``init_process_group`` with NCCL over TCP, the smoke
+   gemma2-2b trains 2 steps, the group destroyed after), ``--production-mesh``
+   and ``--multipod`` refused (256 / 512 ranks), ``make_compressed_dp_grad_fn``
+   on gemma2-2b at full width and 2 layers (f32, ``DIST_B`` x ``DIST_S``,
+   two error-feedback steps) on a one-rank mesh against the same call on
+   the CPU (within one quantization step per element), and a checkpoint
+   saved on the mesh path and resumed with ``shardings=`` whose continued
+   run is bit-equal to an unbroken one.
 
 The ``kernels`` line's ``flash_attention`` and ``ssd`` rows stay those of
 the bf16 Hymba-1.5B prefill (9), comparable across runs; the zoo's are in
@@ -2282,6 +2299,81 @@ def _lm_batch(torch, rng, cfg, B, S, dev, whisper=False):
     return batch
 
 
+# The one-rank mesh step against the plain step (gemma2-2b at full width and
+# depth, bf16, step 1), fixed before the first run: one rank runs the plain
+# step's local ops on the same values (DTensor adds dispatch, not
+# arithmetic), so the loss and every parameter agree to float32 rounding of
+# the sums whose order the card may change between two launches (cuBLAS's
+# split choices, the embedding backward's accumulation): 1e-6 relative
+MESH_STEP1_RTOL = 1e-6
+
+
+def _local(t):
+    """A DTensor's local block (on one rank, its whole value); any other leaf as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def mesh_vs_plain_step1(torch, smi, dev, cfg, init, steps):
+    """Step 1 of the launcher's gemma2-2b run through the distributed stack
+    (a one-rank NCCL mesh, ``train_shardings``, ``device_put``, ``on_mesh``,
+    ``shard_batch``) against the same step on plain tensors, from the same
+    parameters and batch; then one more mesh step under torch.profiler."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import build_model
+    from repro_torch.data import shard_batch, token_batches
+    from repro_torch.dist import device_put, on_mesh, train_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.nn.module import tree_leaves, tree_map
+    from repro_torch.train import AdamW, make_lm_train_step
+    from repro_torch.train.optimizer import warmup_cosine
+
+    model = build_model(cfg)
+    opt = AdamW(lr=warmup_cosine(1e-3, 50, steps), weight_decay=0.01)
+    data = token_batches(LM_TRAIN_B, LM_TRAIN_S, cfg.vocab, seed=0)
+    host = [next(data) for _ in range(2)]
+    mesh = make_host_mesh(1, device=dev)
+    try:
+        params = tree_map(lambda t: t.to(dev, copy=True), init)
+        state = opt.init(params)
+        sh = train_shardings(mesh, model.axes(), model.abstract(), state, LM_TRAIN_B)
+        params, state = device_put(params, sh.params), device_put(state, sh.opt_state)
+        step = on_mesh(make_lm_train_step(model, opt, donate=True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, shard_batch(host[0], sh.batch))
+        mesh_loss = float(m["loss"])
+        first_ms = (time.perf_counter() - t0) * 1e3
+        snap = [t.to_local().clone() for t in tree_leaves(params)]
+        split = time_split(torch, lambda p, b: step(p, state, b), params, shard_batch(host[1], sh.batch))
+        del params, state, step, m
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    params = tree_map(lambda t: t.to(dev, copy=True), init)
+    params, _, m = make_lm_train_step(model, opt, donate=True)(
+        params, opt.init(params), {k: torch.from_numpy(v).to(dev) for k, v in host[0].items()})
+    plain_loss = float(m["loss"])
+    rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(snap, tree_leaves(params))]
+    loss_rel = _rel(mesh_loss, plain_loss)
+    del params, snap, m
+    torch.cuda.empty_cache()
+    row = {"loss": [mesh_loss, plain_loss], "loss_rel": loss_rel, "param_rel": rel, "first_step_ms": first_ms,
+           "split": split}
+    print(f"gemma2-2b step 1, one-rank mesh (DTensor) vs plain tensors, the same parameters and batch: loss "
+          f"{mesh_loss:.7f} / {plain_loss:.7f} (rel {loss_rel:.2e}), parameters after AdamW: worst leaf max|delta| / "
+          f"max|leaf| {max(rel):.2e} over {len(rel)} leaves (<= {MESH_STEP1_RTOL:g}); the mesh step 1 took "
+          f"{first_ms:.1f} ms on the host clock (DTensor's sharding propagation meets every op for the first time)")
+    if split:
+        kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["by_kind"].items(), key=lambda kv: -kv[1]))
+        print(f"  mesh step 2 under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy {split['busy_ms']:.2f} "
+              f"ms ({kinds}), idle {100 * split['idle_share']:.1f}% | {smi}")
+    if not (loss_rel <= MESH_STEP1_RTOL and max(rel) <= MESH_STEP1_RTOL):
+        raise AssertionError(f"one-rank mesh step 1 differs from the plain step: loss {loss_rel:.3e}, "
+                             f"parameters {max(rel):.3e}")
+    return row
+
+
 def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
     """LM training on the card (item 12 of the docstring). Returns rows."""
     import sys as _sys
@@ -2289,14 +2381,17 @@ def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
 
     import numpy as np
 
+    from torch.distributed.tensor import DTensor
+
     from repro_torch import kernels
     from repro_torch.configs import build_model, get_arch
-    from repro_torch.data import FailingIterator, token_batches
+    from repro_torch.data import FailingIterator, Prefetcher, to_device, token_batches
     from repro_torch.launch.supervisor import supervise
     from repro_torch.launch.train import main as train_main
     from repro_torch.nn.module import param_count, tree_leaves, tree_map
     from repro_torch.train import (AdamW, LoopConfig, make_lm_train_step, restore_checkpoint,
                                    run_train_loop)
+    from repro_torch.train.optimizer import warmup_cosine
 
     rows = {}
     cpu = torch.device("cpu")
@@ -2312,12 +2407,13 @@ def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
             raise AssertionError(f"{what}: kernel launches under autograd {got}, want none")
         return dict(kernels.grad_routes)
 
-    # ---- gemma2-2b, full width and depth, through the launcher
+    # ---- gemma2-2b, full width and depth, through the launcher (a one-rank mesh, DTensor parameters)
     spec = get_arch("gemma2_2b")
     init = build_model(spec.config).init(torch.Generator().manual_seed(0))  # the launcher's draw, on the host
     n = param_count(init)
     if n != spec.config.n_params():
         raise AssertionError(f"gemma2-2b: {n} parameters, want {spec.config.n_params()}")
+    bcfg = dataclasses.replace(spec.config, act_dtype=torch.bfloat16)
     for n_micro, steps in LM_TRAIN_RUNS:
         argv = ["--arch", "gemma2_2b", "--steps", str(steps), "--batch", str(LM_TRAIN_B), "--seq", str(LM_TRAIN_S),
                 "--n-micro", str(n_micro), "--log-every", "1", "--device", str(dev)]
@@ -2333,43 +2429,82 @@ def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
         hist = out.history
         if out.step != steps or len(hist) != steps or not all(math.isfinite(h["loss"]) for h in hist):
             raise AssertionError(f"gemma2-2b n_micro {n_micro}: step {out.step}, losses {[h['loss'] for h in hist]}")
-        stuck = [i for i, (a, b) in enumerate(zip(tree_leaves(init), tree_leaves(out.params)))
+        if not all(isinstance(t, DTensor) for t in tree_leaves(out.params)):
+            raise AssertionError("launch.train.main returned parameters that are not DTensors")
+        params, opt_state = tree_map(_local, out.params), tree_map(_local, out.opt_state)  # one rank: the whole
+        del out
+        stuck = [i for i, (a, b) in enumerate(zip(tree_leaves(init), tree_leaves(params)))
                  if bool(torch.equal(a, b.to(cpu)))]
         if stuck:
             raise AssertionError(f"gemma2-2b n_micro {n_micro}: leaves {stuck} unchanged after {steps} steps")
         ms = [h["time"] * 1e3 for h in hist]
         step_ms = sum(ms[1:]) / len(ms[1:])
         split = {}
-        if n_micro == 1:  # one more step of the trained state under torch.profiler
-            step = make_lm_train_step(build_model(dataclasses.replace(spec.config, act_dtype=torch.bfloat16)),
-                                      AdamW(lr=1e-4, weight_decay=0.01), donate=True)
+        if n_micro == 1:  # one more plain step of the trained state under torch.profiler
+            step = make_lm_train_step(build_model(bcfg), AdamW(lr=1e-4, weight_decay=0.01), donate=True)
             batch = _lm_batch(torch, np.random.default_rng(3), spec.config, LM_TRAIN_B, LM_TRAIN_S, dev)
-            split = time_split(torch, lambda p, b: step(p, out.opt_state, b), out.params, batch)
+            split = time_split(torch, lambda p, b: step(p, opt_state, b), params, batch)
             del step, batch
-        row = {"n_micro": n_micro, "steps": steps, "batch": [LM_TRAIN_B, LM_TRAIN_S], "params": n,
+        row = {"path": "mesh", "n_micro": n_micro, "steps": steps, "batch": [LM_TRAIN_B, LM_TRAIN_S], "params": n,
                "losses": [h["loss"] for h in hist], "ms": ms, "step_ms": step_ms,
                "tokens_per_s": LM_TRAIN_B * LM_TRAIN_S / (step_ms / 1e3), "peak_bytes": peak,
                "grad_routes": routes, "wall_s": wall, "split": split}
         rows[f"gemma2_2b n_micro {n_micro}"] = row
         print(f"gemma2-2b train ({n:,} parameters, full depth, {LM_TRAIN_B} x {LM_TRAIN_S} tokens, bf16, remat, "
-              f"n_micro {n_micro}, launch.train.main): {steps} steps, loss {hist[0]['loss']:.4f} -> "
-              f"{hist[-1]['loss']:.4f} (all finite), all {len(tree_leaves(init))} leaves changed; step ms "
-              f"{step_ms:.2f} (steps 2-{steps}, synchronised; step 1 {ms[0]:.2f}), {row['tokens_per_s']:,.0f} "
-              f"tokens/s, peak {peak / 2**30:.2f} GiB; kernel launches 0, plain routes taken under autograd "
-              f"{json.dumps(routes)} ({routes.get('flash_attention', 0) / steps:g} flash a step: "
-              f"{spec.config.n_layers} layers x {n_micro} micro-batches x forward and remat's recompute); "
+              f"n_micro {n_micro}, launch.train.main on a one-rank NCCL mesh, DTensor parameters): {steps} steps, "
+              f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f} (all finite), all {len(tree_leaves(init))} "
+              f"leaves changed; step ms {step_ms:.2f} (steps 2-{steps}, synchronised; step 1 {ms[0]:.2f}), "
+              f"{row['tokens_per_s']:,.0f} tokens/s, peak {peak / 2**30:.2f} GiB; kernel launches 0, plain routes "
+              f"taken under autograd {json.dumps(routes)} ({routes.get('flash_attention', 0) / steps:g} flash a "
+              f"step: {spec.config.n_layers} layers x {n_micro} micro-batches x forward and remat's recompute); "
               f"main {wall:.1f} s | {smi}")
         if split:
             kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["by_kind"].items(), key=lambda kv: -kv[1]))
-            print(f"  one more step under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy "
+            print(f"  one more plain step under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy "
                   f"{split['busy_ms']:.2f} ms ({kinds}), idle {100 * split['idle_share']:.1f}%; largest other: "
                   + "; ".join(f"{k} {v:.2f}" for k, v in split["top_other"]))
             print("  its device ms by op (own kernels): " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_ops"]))
             print("  by backward node (with its ops): " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_backward"]))
         elif n_micro == 1:
             print("  step time split: not measured (the profiler recorded no kernel)")
-        del out
+        del params, opt_state
         torch.cuda.empty_cache()
+
+    # ---- the same run on the plain path (plain tensors, make_lm_train_step called directly, the same batches)
+    steps = LM_TRAIN_RUNS[0][1]
+    model = build_model(bcfg)
+    opt = AdamW(lr=warmup_cosine(1e-3, 50, steps), weight_decay=0.01)
+    params = tree_map(lambda t: t.to(dev, copy=True), init)
+    state = opt.init(params)
+    data = Prefetcher(token_batches(LM_TRAIN_B, LM_TRAIN_S, bcfg.vocab, seed=0), transform=lambda b: to_device(b, dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    try:
+        out = run_train_loop(make_lm_train_step(model, opt, donate=True), params, state, data,
+                             LoopConfig(steps, None, log_every=1), log_fn=lambda line: None)
+    finally:
+        data.close()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    no_launches("gemma2-2b plain training")
+    hist = out.history
+    ms = [h["time"] * 1e3 for h in hist]
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    mesh_row = rows["gemma2_2b n_micro 1"]
+    loss_rel = [_rel(a, h["loss"]) for a, h in zip(mesh_row["losses"], hist)]
+    rows["gemma2_2b plain"] = {"path": "plain", "n_micro": 1, "steps": steps, "losses": [h["loss"] for h in hist],
+                               "ms": ms, "step_ms": step_ms, "tokens_per_s": LM_TRAIN_B * LM_TRAIN_S / (step_ms / 1e3),
+                               "peak_bytes": peak, "loss_rel_vs_mesh": loss_rel}
+    print(f"gemma2-2b train on the plain path (plain tensors, make_lm_train_step in run_train_loop, the launcher's "
+          f"batches): {steps} steps, step ms {step_ms:.2f} (steps 2-{steps}; step 1 {ms[0]:.2f}), "
+          f"{LM_TRAIN_B * LM_TRAIN_S / (step_ms / 1e3):,.0f} tokens/s, peak {peak / 2**30:.2f} GiB; mesh path "
+          f"{mesh_row['step_ms']:.2f} ms ({mesh_row['step_ms'] / step_ms:.3f}x), {mesh_row['tokens_per_s']:,.0f} "
+          f"tokens/s, peak {mesh_row['peak_bytes'] / 2**30:.2f} GiB; loss per step relative to the mesh path's: "
+          + ", ".join(f"{r:.1e}" for r in loss_rel) + f" | {smi}")
+    del out, params, state
+    torch.cuda.empty_cache()
+    rows["gemma2_2b step1 mesh vs plain"] = mesh_vs_plain_step1(torch, smi, dev, bcfg, init, steps)
     del init
 
     # ---- step 1 on the card against the CPU (f32, 2 layers)
@@ -2499,6 +2634,179 @@ def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
     print("loop fault path (gemma2-2b smoke, f32, on the card): checkpoint at step 8 restores bit for bit; a data "
           "failure at step 10 leaves a rescue checkpoint that restores the last step's tree bit for bit; the resumed "
           "run reaches step 16; supervise restarts a command that fails once and returns 0")
+    return rows
+
+
+DIST_B, DIST_S = 2, 64  # the compressed-gradient batch (gemma2-2b at full width, 2 layers, f32)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dist_phase(torch, smi, dev):
+    """The distributed stack on the card, one rank (the docstring's item
+    13). Returns rows."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.data import shard_batch, token_batches
+    from repro_torch.dist import PartitionSpec, device_put, make_compressed_dp_grad_fn, on_mesh, train_shardings
+    from repro_torch.dist import zeros_like_error
+    from repro_torch.launch.distributed import backend_for
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.nn.module import tree_leaves, tree_map
+    from repro_torch.train import AdamW, LoopConfig, make_lm_train_step, run_train_loop
+    from repro_torch.train.losses import chunked_cross_entropy
+
+    rows = {}
+    cpu = torch.device("cpu")
+    quiet = []
+
+    # ---- the multi-process flags, one process: TCP rendezvous at a coordinator, NCCL
+    port = _free_port()
+    seen = {}
+
+    def recording(backend=None, **kwargs):
+        seen.update(kwargs, backend=backend)
+        real(backend, **kwargs)
+        seen["group"] = (dist.get_backend(), dist.get_world_size(), dist.get_rank())
+
+    with patched(dist, "init_process_group", recording) as real:
+        out = train_main(["--smoke", "--steps", "2", "--batch", "4", "--seq", "64", "--log-every", "1",
+                          "--device", str(dev), "--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+                          "--process-id", "0"])
+    backend = backend_for(dev)  # nccl on the card
+    want = {"backend": backend, "init_method": f"tcp://127.0.0.1:{port}", "world_size": 1, "rank": 0}
+    if {k: seen.get(k) for k in want} != want or seen.get("group") != (backend, 1, 0):
+        raise AssertionError(f"--coordinator: init_process_group got {seen}, want {want}")
+    if out.step != 2 or not all(math.isfinite(h["loss"]) for h in out.history) or dist.is_initialized():
+        raise AssertionError(f"--coordinator run: step {out.step}, history {out.history}, "
+                             f"group left {dist.is_initialized()}")
+    rows["tcp_init"] = {"init_method": seen["init_method"], "group": list(seen["group"]),
+                        "losses": [h["loss"] for h in out.history]}
+    print(f"--coordinator 127.0.0.1:{port} --num-processes 1 --process-id 0: init_process_group({backend}, "
+          f"{seen['init_method']}) -> group {seen['group']}, the smoke gemma2-2b trains 2 steps (losses "
+          + ", ".join(f"{h['loss']:.4f}" for h in out.history) + "), the group destroyed after main")
+    del out
+
+    # ---- --production-mesh / --multipod need 256 / 512 ranks
+    for flags, need in ((["--production-mesh"], 256), (["--production-mesh", "--multipod"], 512)):
+        try:
+            train_main(["--smoke", "--steps", "1", "--device", str(dev), *flags])
+            raise AssertionError(f"{flags} trained on one card")
+        except RuntimeError as e:
+            if f"need {need} ranks" not in str(e):
+                raise
+        if dist.is_initialized():
+            raise AssertionError(f"{flags} left a process group")
+    print("--production-mesh and --production-mesh --multipod raise RuntimeError on one card: need 256 / 512 ranks")
+
+    # ---- compressed data-parallel gradients on the card (a one-rank mesh) vs the CPU (mesh=None)
+    spec = get_arch("gemma2_2b")
+    cfg = dataclasses.replace(spec.config, n_layers=2, act_dtype=torch.float32)
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    b_cpu = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (DIST_B, DIST_S)).astype(np.int32))
+             for k in ("tokens", "labels")}
+
+    def loss_fn(p, b):
+        hidden, _ = model(p, b["tokens"], return_hidden=True)
+        return chunked_cross_entropy(model.head, p, hidden, b["labels"])
+
+    def two_steps(mesh, d):
+        gf = make_compressed_dp_grad_fn(loss_fn, mesh, PartitionSpec("data"))
+        p, b = tree_map(lambda t: t.to(d), p_cpu), tree_map(lambda t: t.to(d), b_cpu)
+        g1, e1 = gf(p, b, zeros_like_error(p, 2))
+        g2, e2 = gf(p, b, e1)
+        return [[t.to(cpu) for t in tree_leaves(x)] for x in (g1, e1, g2, e2)]
+
+    mesh = make_host_mesh(1, device=dev)
+    try:
+        t0 = time.perf_counter()
+        card = two_steps(mesh, dev)
+        card_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    host = two_steps(None, cpu)
+    # each device's dequantized leaf is level * scale, scale = max|g| / 127: the levels may differ by one
+    # where the two devices' sums straddle a rounding boundary, the scales by the sums' rounding
+    worst_level, flipped, n_el, scale_rel = 0, 0, 0, 0.0
+    for c, h in ((card[0], host[0]), (card[2], host[2])):
+        for a, b in zip(c, h):
+            sa, sb = float(a.abs().max()) / 127, float(b.abs().max()) / 127
+            diff = (torch.round(a / max(sa, 1e-30)) - torch.round(b / max(sb, 1e-30))).abs()
+            worst_level = max(worst_level, int(diff.max()))
+            flipped += int((diff > 0).sum())
+            n_el += diff.numel()
+            scale_rel = max(scale_rel, abs(sa - sb) / max(sb, 1e-30))
+    resid = max(float((a - b).abs().max()) for a, b in zip(card[3], host[3]))
+    rows["compressed"] = {"batch": [DIST_B, DIST_S], "layers": 2, "worst_level_delta": worst_level,
+                          "flipped_share": flipped / n_el, "scale_rel": scale_rel, "resid_max_abs": resid,
+                          "card_s": card_s}
+    print(f"make_compressed_dp_grad_fn (gemma2-2b full width, 2 layers, f32, {DIST_B} x {DIST_S}, 8 bits, 2 carriers, "
+          f"two error-feedback steps): card (one-rank NCCL mesh, the all-reduce over 'data') vs CPU (mesh=None): "
+          f"levels differ by at most {worst_level} quantization step (<= 1) at {flipped} of {n_el:,} elements, "
+          f"scales within {scale_rel:.2e} (<= 1e-5); residuals max |delta| {resid:.3e}; card {card_s:.1f} s")
+    if not (worst_level <= 1 and scale_rel <= 1e-5):
+        raise AssertionError(f"compressed gradients: card vs CPU levels {worst_level} apart, scales {scale_rel:.2e}")
+    del card, host, p_cpu, model
+
+    # ---- a checkpoint saved on the mesh path, resumed with shardings=: bit-equal to an unbroken run
+    scfg = dataclasses.replace(spec.smoke, n_layers=2, act_dtype=torch.float32)
+    smodel = build_model(scfg)
+    opt = AdamW(lr=1e-3, weight_decay=0.01)
+    data = token_batches(4, 64, scfg.vocab, seed=0)
+    batches = [next(data) for _ in range(8)]
+    mesh = make_host_mesh(1, device=dev)
+    try:
+        p0 = smodel.init(torch.Generator().manual_seed(0), device=dev)
+        sh = train_shardings(mesh, smodel.axes(), smodel.abstract(), opt.init(p0), 4)
+        shardings = {"params": sh.params, "opt_state": sh.opt_state}
+        step = on_mesh(make_lm_train_step(smodel, opt, donate=True))
+
+        def fresh():  # copies: a replicated leaf is placed without one, and the step writes into it
+            return device_put(tree_map(torch.clone, p0), sh.params), device_put(opt.init(p0), sh.opt_state)
+
+        def feed(bs):
+            return (shard_batch(b, sh.batch) for b in bs)
+
+        with tempfile.TemporaryDirectory() as d:
+            whole = run_train_loop(step, *fresh(), feed(batches), LoopConfig(8, f"{d}/a", ckpt_every=4, log_every=1),
+                                   log_fn=quiet.append, shardings=shardings)
+            run_train_loop(step, *fresh(), feed(batches[:4]), LoopConfig(4, f"{d}/b", ckpt_every=4, log_every=1),
+                           log_fn=quiet.append, shardings=shardings)
+            manifest = Path(f"{d}/b/MANIFEST").read_text().split()
+            shards = sorted(p.name for p in Path(f"{d}/b").glob("step_*/shard_*"))
+            resumed = run_train_loop(step, *fresh(), feed(batches[4:]),
+                                     LoopConfig(8, f"{d}/b", ckpt_every=4, log_every=1), log_fn=quiet.append,
+                                     shardings=shardings)
+        placed = all(isinstance(t, DTensor) and t.placements == s.placements
+                     for t, s in zip(tree_leaves(resumed.params), tree_leaves(sh.params)))
+        same = all(torch.equal(a.to_local(), b.to_local()) for a, b in
+                   zip(tree_leaves((whole.params, whole.opt_state)), tree_leaves((resumed.params, resumed.opt_state))))
+        hist = [h["loss"] for h in whole.history[4:]] == [h["loss"] for h in resumed.history]
+    finally:
+        dist.destroy_process_group()
+    if not ("[loop] resumed from step 4" in quiet and manifest == ["4", "1"] and shards == ["shard_00000.ckpt"]
+            and placed and same and hist):
+        raise AssertionError(f"mesh checkpoint resume: manifest {manifest}, shards {shards}, placed {placed}, "
+                             f"bit-equal {same}, losses {hist}; log {quiet[-4:]}")
+    rows["resume"] = {"manifest": manifest, "bit_equal": same, "losses": [h["loss"] for h in resumed.history]}
+    print("mesh checkpoint (smoke gemma2-2b, 2 layers, f32, one-rank NCCL mesh): saved at step 4 (shard_00000.ckpt, "
+          "MANIFEST names step 4 and 1 rank), resumed with shardings= (every leaf a DTensor with its placements); "
+          f"steps 5-8 bit-equal to an unbroken run (parameters, AdamW state, losses) | {smi}")
     return rows
 
 
@@ -2890,6 +3198,10 @@ def main() -> int:
           "and whisper steps, the loop's fault path (TF32 off)")
     train_lm_rows = lm_train_phase(torch, smi, dev, attn_ops, ssd_ops)
     lap("LM training")
+    print("-- the distributed stack on one rank: TCP init through the launcher's flags, the production meshes' "
+          "refusal, compressed gradients vs the CPU, a checkpoint resumed on the mesh")
+    dist_rows = dist_phase(torch, smi, dev)
+    lap("distributed")
 
     kernels = []
     for n in REPLACES:
@@ -2927,7 +3239,7 @@ def main() -> int:
              "bf16_forward": {"launches": bf16_launches, "checks": bf16_checks},
              "hymba_prefill": prefill_rows, "lm_per_prefill": lm_tot, "hymba_decode": decode_row,
              "flash_ptxas": flash_tc, "launcher": launcher_rows, "served_ab": served_rows,
-             "fleets": fleet_rows, "lm_zoo": zoo_rows, "lm_train": train_lm_rows,
+             "fleets": fleet_rows, "lm_zoo": zoo_rows, "lm_train": train_lm_rows, "dist": dist_rows,
              "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -8,4 +8,4 @@ from .synthetic import (
     phantom_batches,
     token_batches,
 )
-from .loader import FailingIterator, Prefetcher, to_device
+from .loader import FailingIterator, Prefetcher, shard_batch, to_device

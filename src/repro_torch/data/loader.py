@@ -16,8 +16,7 @@ def to_device(batch: Any, device: str | torch.device) -> Any:
     Leaves bound for a CUDA card go through pinned host memory with
     non-blocking copies, so the copy overlaps the host's next work; the
     pinned buffers are the caching host allocator's, which keeps each one
-    until its copy is done. (Placement over a mesh of devices waits for
-    the ``dist`` port.)"""
+    until its copy is done. ``shard_batch`` places a batch over a mesh."""
     device = torch.device(device)
 
     def put(x):
@@ -27,6 +26,24 @@ def to_device(batch: Any, device: str | torch.device) -> Any:
         return t.to(device)
 
     return tree_map(put, batch)
+
+
+def shard_batch(batch: dict, sharding=None) -> dict:
+    """Place a host batch on devices (with a ``dist.NamedSharding`` when
+    given): ``jax.device_put`` of a per-process batch. Each rank's block of
+    the sharded dims is its own rows of its own host batch (the batch the
+    rank drew; ``distribute_tensor`` with no source rank), wrapped as a
+    DTensor of the global shape; no data moves between ranks. Without a
+    sharding, the leaves as CPU tensors."""
+    if sharding is None:
+        return tree_map(torch.as_tensor, batch)
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..dist.sharding import local_device
+
+    dev = local_device(sharding.mesh)
+    return tree_map(lambda x: distribute_tensor(torch.as_tensor(x).to(dev), sharding.device_mesh,
+                                                sharding.placements, src_data_rank=None), batch)
 
 
 class Prefetcher:

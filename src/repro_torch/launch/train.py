@@ -1,18 +1,26 @@
 """Training launcher (the counterpart of ``repro.launch.train``): an
 architecture of ``configs.ARCH_IDS`` trained on the synthetic token stream
-by ``make_lm_train_step`` in the fault-tolerant loop, on the CUDA card
-unless ``--device`` names another device.
+by ``make_lm_train_step`` in the fault-tolerant loop, over a ``DeviceMesh``
+of the process group's ranks, on the CUDA card unless ``--device`` names
+another device.
 
+Single process (a one-rank mesh):
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2_2b --smoke --steps 100
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2_2b --smoke --steps 3 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2_2b --batch 4 --seq 1024 --n-micro 2
 
+Multi-process (one invocation per rank; see launch/distributed.py):
+  python -m repro_torch.launch.train --arch gemma2_27b --coordinator $ADDR \
+      --num-processes $N --process-id $I --model-parallel 4
+
 Activations are fp32 under ``--smoke`` and bf16 otherwise; parameters and
-the optimizer state stay fp32, and the step writes its update into their
-buffers (``AdamW.update_``, as the JAX launcher donates them to its jitted
-step). The mesh and multi-host flags wait for the port of the distributed
-stack (``dist/``, ``launch/mesh.py``, ``launch/distributed.py``) and raise.
-``main(argv)`` returns the loop's ``LoopState``.
+the optimizer state stay fp32, are placed by ``dist.train_shardings`` as
+DTensors, and the step writes its update into their buffers
+(``AdamW.update_``, as the JAX launcher donates them to its jitted step).
+Each rank draws its batches from the stream seeded by its index along the
+mesh's data-like dims and keeps its own rows of them (``shard_batch``).
+``main(argv)`` returns the loop's ``LoopState``, and destroys the process
+group if it made it.
 """
 from __future__ import annotations
 
@@ -22,11 +30,14 @@ import dataclasses
 import torch
 
 from ..configs import build_model, get_arch
-from ..data import Prefetcher, to_device, token_batches
+from ..data import Prefetcher, shard_batch, token_batches
+from ..dist.sharding import device_put, mesh_index, on_mesh, train_shardings
 from ..serve.demo import resolve_device
 from ..train import LoopConfig, run_train_loop
 from ..train.optimizer import AdamW, warmup_cosine
 from ..train.steps import make_lm_train_step
+from .distributed import maybe_initialize_distributed
+from .mesh import make_host_mesh, make_production_mesh
 
 
 def parse_args(argv=None):
@@ -51,45 +62,59 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _refuse_distributed(args):
-    used = [flag for flag, on in (
-        ("--model-parallel", args.model_parallel > 1),
-        ("--production-mesh", args.production_mesh),
-        ("--multipod", args.multipod),
-        ("--coordinator", args.coordinator is not None),
-        ("--num-processes", args.num_processes is not None),
-        ("--process-id", args.process_id is not None),
-    ) if on]
-    if used:
-        raise NotImplementedError(
-            f"{', '.join(used)}: meshes and multi-host training wait for the port of the distributed "
-            "stack (dist/, launch/mesh.py, launch/distributed.py)"
-        )
-
-
 def main(argv=None):
+    import torch.distributed as dist
+
     args = parse_args(argv)
-    _refuse_distributed(args)
+    owns_group = not dist.is_initialized()
+    try:
+        return _main(args)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args):
     dev = resolve_device(args.device)
+    maybe_initialize_distributed(args.coordinator, args.num_processes, args.process_id, device=dev)
 
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
     cfg = dataclasses.replace(cfg, act_dtype=torch.float32 if args.smoke else torch.bfloat16)
     model = build_model(cfg)
+    mesh = (
+        make_production_mesh(multi_pod=args.multipod, device=dev)
+        if args.production_mesh
+        else make_host_mesh(args.model_parallel, device=dev)
+    )
+
     params = model.init(torch.Generator().manual_seed(0), device=dev)
     opt = AdamW(lr=warmup_cosine(args.lr, 50, args.steps), weight_decay=0.01)
     opt_state = opt.init(params)
     step = make_lm_train_step(model, opt, n_micro=args.n_micro, donate=True)
 
-    data = Prefetcher(token_batches(args.batch, args.seq, cfg.vocab, seed=0),
-                      transform=lambda b: to_device(b, dev))
+    # all sharding plumbing in one call: fitted param shardings, optimizer
+    # state derived structurally, batch over the data-like axes
+    abstract = model.abstract()
+    sh = train_shardings(mesh, model.axes(), abstract, opt_state, args.batch)
+    params = device_put(params, sh.params)
+    opt_state = device_put(opt_state, sh.opt_state)
+    jstep = on_mesh(step)
+
+    # each rank's stream is seeded by its index along the dims the batch
+    # shards over: ranks that differ only along the others hold equal rows
+    data = Prefetcher(
+        token_batches(args.batch, args.seq, cfg.vocab, seed=mesh_index(mesh, sh.batch.spec[0])[0]),
+        transform=lambda b: shard_batch(b, sh.batch),
+    )
     try:
         out = run_train_loop(
-            step,
+            jstep,
             params,
             opt_state,
             data,
             LoopConfig(args.steps, args.ckpt_dir, ckpt_every=args.ckpt_every, log_every=args.log_every),
+            shardings={"params": sh.params, "opt_state": sh.opt_state},
         )
     finally:
         data.close()

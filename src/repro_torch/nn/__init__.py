@@ -3,6 +3,7 @@ from .module import (
     ParamSpec,
     Stacked,
     param_count,
+    cast_tree,
     from_jax,
     zeros_init,
     ones_init,

@@ -8,6 +8,9 @@
 - ``abstract(dtype)`` is the same tree of ``meta`` tensors: shapes and
   dtypes without storage, so a full-size model is counted without being
   allocated.
+- ``axes()`` is the same tree of logical axis names (``ParamSpec.axes``
+  tuples: "embed", "mlp", "heads", "vocab", ...), which ``dist.sharding``
+  maps onto the mesh.
 - ``Stacked(module, n)`` stacks ``n`` copies on a leading layer axis (the
   JAX package scans over it; the port's models loop over it).
 - ``checkpointed(fn, remat, policy)`` is ``jax.checkpoint``'s counterpart
@@ -103,6 +106,10 @@ class Module:
         tree = _init_tree(self.specs(), generator, dtype)
         return tree if device is None else tree_map(lambda t: t.to(torch.device(device)), tree)
 
+    def axes(self) -> dict[str, Any]:
+        """The parameter tree's logical axis names: a tuple per leaf."""
+        return _axes_tree(self.specs())
+
     def abstract(self, dtype: torch.dtype = torch.float32) -> dict[str, Any]:
         """The parameter tree as ``meta`` tensors (``jax.ShapeDtypeStruct``'s
         counterpart): ``param_count`` of it counts a full-size model."""
@@ -122,6 +129,28 @@ def _init_tree(spec: Any, g: torch.Generator, dtype) -> Any:
     if isinstance(spec, (list, tuple)):
         return [_init_tree(v, g, dtype) for v in spec]
     raise TypeError(f"bad spec: {type(spec)}")
+
+
+def _axes_tree(spec: Any) -> Any:
+    if isinstance(spec, ParamSpec):
+        return spec.axes
+    if isinstance(spec, Module):
+        return spec.axes()
+    if isinstance(spec, dict):
+        return {k: _axes_tree(v) for k, v in spec.items()}
+    if isinstance(spec, (list, tuple)):
+        return [_axes_tree(v) for v in spec]
+    raise TypeError(f"bad spec: {type(spec)}")
+
+
+def axes_map(fn, axes_tree, *rest):
+    """``fn`` over the leaves of an ``axes()`` tree (a tuple of names, or
+    None, is a leaf) and the trees of its structure in ``rest``."""
+    if axes_tree is None or isinstance(axes_tree, tuple):
+        return fn(axes_tree, *rest)
+    if isinstance(axes_tree, dict):
+        return {k: axes_map(fn, axes_tree[k], *(r[k] for r in rest)) for k in axes_tree}
+    return [axes_map(fn, *xs) for xs in zip(axes_tree, *rest)]
 
 
 def _abstract_tree(spec: Any, dtype) -> Any:
@@ -153,6 +182,10 @@ class Stacked(Module):
         """Draw copy 0, then 1, ... from ``generator`` and stack them."""
         out = tree_stack([self.inner.init(generator, dtype) for _ in range(self.n)])
         return out if device is None else tree_map(lambda t: t.to(torch.device(device)), out)
+
+    def axes(self):
+        """The inner axes with "layers" prepended (mapped to no mesh axis)."""
+        return axes_map(lambda a: ("layers", *a), self.inner.axes())
 
     def abstract(self, dtype=torch.float32):
         return tree_map(lambda t: torch.empty((self.n, *t.shape), dtype=t.dtype, device="meta"),
@@ -256,6 +289,11 @@ def _dots_contexts():
 
 def param_count(params) -> int:
     return sum(int(x.numel()) for x in tree_leaves(params))
+
+
+def cast_tree(params, dtype):
+    """The floating leaves cast to ``dtype``; the others as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, params)
 
 
 def from_jax(tree: Any, device=None) -> Any:

@@ -81,10 +81,12 @@ class MoE(Module):
         pos = torch.arange(T * k, device=dev) - first
         valid = pos < C
         slot = torch.where(valid, sorted_e * C + pos, E * C)  # overflow -> the dropped row E*C
-        slot_tok = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
-        slot_tok[slot] = torch.where(valid, tok, T)
-        slot_gate = torch.zeros((E * C + 1,), dtype=torch.float32, device=dev)
-        slot_gate[slot] = torch.where(valid, gates.reshape(T * k)[order], 0.0)
+        # out of place, as the combine below: over a mesh (DTensor operands) an in-place write into a
+        # plain buffer is refused, and one into a partial sum is summed over the ranks
+        slot_tok = torch.full((E * C + 1,), T, dtype=torch.long, device=dev).index_put(
+            (slot,), torch.where(valid, tok, T))
+        slot_gate = torch.zeros((E * C + 1,), dtype=torch.float32, device=dev).index_put(
+            (slot,), torch.where(valid, gates.reshape(T * k)[order], 0.0))
         return slot_tok[: E * C], slot_gate[: E * C]
 
     def __call__(self, p, x):
@@ -105,9 +107,9 @@ class MoE(Module):
         u = torch.bmm(ein, p["w_up"].to(ein.dtype))
         eout = torch.bmm(F.silu(g) * u, p["w_down"].to(ein.dtype))
 
-        # ---- combine (scatter-add back to tokens) ----
+        # ---- combine (scatter-add back to tokens, out of place) ----
         weighted = eout.reshape(E * C, d) * slot_gate[:, None].to(eout.dtype)
-        y = weighted.new_zeros((T + 1, d)).index_add_(0, slot_tok, weighted)[:T]
+        y = weighted.new_zeros((T + 1, d)).index_add(0, slot_tok, weighted)[:T]
         y = y.reshape(B, S, d).to(x.dtype)
 
         if self.n_shared:

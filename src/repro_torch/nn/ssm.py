@@ -42,6 +42,23 @@ def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
     return y, new_state
 
 
+class _RowMajorGrad(torch.autograd.Function):
+    """The identity, whose gradient is passed back row-major. When the
+    sequence is one chunk long, the scan's einsums hand ``dt``'s gradient
+    back in (b, h, s) layout; the pointwise backward of the softplus keeps
+    that layout, and over DTensors, which declare that op's result
+    row-major, the in-projection's backward then views a tensor that is
+    not. The values are unchanged."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 @dataclasses.dataclass(frozen=True)
 class Mamba2Block(Module):
     d_model: int
@@ -109,6 +126,8 @@ class Mamba2Block(Module):
         Bmat = xbc[..., di : di + g * n].reshape(B_, S, g, n)
         Cmat = xbc[..., di + g * n :].reshape(B_, S, g, n)
         dt = F.softplus(dt.float() + p["dt_bias"]).to(x.dtype)  # (B,S,H)
+        if dt.requires_grad:
+            dt = _RowMajorGrad.apply(dt)
         A = -torch.exp(p["A_log"].float()).to(x.dtype)  # (H,)
         scan = ssd_chunked if grad_route("ssd", xs, dt, A, Bmat, Cmat) else ssd_ops.ssd
         out = scan(xs, dt, A, Bmat, Cmat, chunk=min(self.chunk, S), return_state=return_state)

@@ -18,8 +18,20 @@ either package restores in the other:
 
 Properties: atomic commit (a step is visible only after its MANIFEST
 rename), async save (the device-to-host copy on the caller's thread, the
-write on a writer thread), keep-k GC, restore onto any device, and
+write on a writer thread), keep-k GC, restore onto any device or mesh, and
 per-leaf checksums (a corrupt newest step falls back to the one before).
+
+Over a process group each rank writes ``shard_<rank>``: the blocks of the
+tree that it holds, and no block twice. A DTensor leaf's local block is
+written by the rank at coordinate 0 of every mesh dim that replicates it,
+with its offset in the whole leaf where it is not the whole; any other leaf
+by rank 0. Saving issues no collective, so a rank can write its rescue
+checkpoint while the others are stuck in a step or gone. Rank 0's payload
+and ``MANIFEST`` name the world size; a restore reads every shard of the
+step, assembles each leaf whole, and falls back to the step before when a
+shard is missing. ``restore_checkpoint(..., shardings=)`` places each leaf
+by its ``NamedSharding``, so a checkpoint written on 4 ranks restores onto
+2 or 1. On one process the files are the JAX package's, byte for byte.
 """
 from __future__ import annotations
 
@@ -215,6 +227,29 @@ def _host(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
 
 
+def _block(x, writes_whole: bool):
+    """(this rank's block of leaf ``x`` as a CPU tensor, its offset in the
+    whole leaf or None where it is the whole), or None where another rank
+    writes it. No collective: a DTensor's local block, written by the rank
+    at coordinate 0 of each mesh dim that replicates it; any other leaf
+    where ``writes_whole``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return (_host(x), None) if writes_whole else None
+    if not all(isinstance(p, (Shard, Replicate)) for p in x.placements):
+        raise ValueError(f"cannot checkpoint a leaf placed {x.placements}")
+    coord = x.device_mesh.get_coordinate()
+    if any(isinstance(p, Replicate) and c for p, c in zip(x.placements, coord)):
+        return None
+    local = _host(x.to_local())
+    if tuple(local.shape) == tuple(x.shape):
+        return local, None
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    return local, tuple(compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)[1])
+
+
 def _pack_array(t: torch.Tensor) -> dict:
     if t.dtype == torch.bfloat16:  # stored as its uint16 bits, as the JAX package stores it
         data, dtype = t.view(torch.int16).numpy().view(np.uint16).tobytes(), "bfloat16"
@@ -234,11 +269,20 @@ def _unpack_array(d: dict) -> torch.Tensor:
     return torch.from_numpy(np.frombuffer(data, np.dtype(d["dtype"])).reshape(d["shape"]).copy())
 
 
-def _host_copy(tree: Any) -> Any:
-    """``tree`` with every leaf copied to host memory (the JAX package's
-    ``jax.device_get``): a copy, so a step that later writes into the
-    device buffers (``AdamW.update_``) cannot change what is saved."""
-    return tree_map(_host, tree)
+def _host_copy(tree: Any, process_index: int = 0, n_processes: int = 1) -> dict:
+    """``{path: (block, offset)}`` of the leaves this rank writes, each
+    block copied to host memory (the JAX package's ``jax.device_get``): a
+    copy, so a step that later writes into the device buffers
+    (``AdamW.update_``) cannot change what is saved."""
+    out = {}
+    for key, x in zip(_paths(tree), tree_leaves(tree)):
+        blk = _block(x, n_processes == 1 or process_index == 0)
+        if blk is None:
+            continue
+        if blk[1] is not None and n_processes == 1:
+            raise ValueError(f"leaf {key} is sharded over ranks: save it with n_processes")
+        out[key] = blk
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -248,16 +292,22 @@ def _host_copy(tree: Any) -> Any:
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, extra: dict | None = None, process_index: int = 0,
                     n_processes: int = 1):
-    """Synchronous save of a tree of tensors or arrays (``AsyncCheckpointer``
-    saves on a writer thread)."""
+    """Synchronous save of a tree of tensors, DTensors or arrays
+    (``AsyncCheckpointer`` saves on a writer thread)."""
+    return _write(ckpt_dir, step, _host_copy(tree, process_index, n_processes), extra, process_index, n_processes)
+
+
+def _write(ckpt_dir: str, step: int, blocks: dict, extra, process_index: int, n_processes: int) -> str:
     step_dir = os.path.join(ckpt_dir, f"step_{step:010d}")
     os.makedirs(step_dir, exist_ok=True)
-    host = _host_copy(tree)
-    payload = {
-        "step": step,
-        "extra": extra or {},
-        "arrays": {k: _pack_array(v) for k, v in zip(_paths(host), tree_leaves(host))},
-    }
+    arrays = {}
+    for key, (t, offset) in blocks.items():
+        arrays[key] = _pack_array(t)
+        if offset is not None:
+            arrays[key]["offset"] = list(offset)
+    payload = {"step": step, "extra": extra or {}, "arrays": arrays}
+    if n_processes > 1:
+        payload["n_processes"] = n_processes
     raw = packb(payload)
     if HAVE_ZSTD:
         codec, data = CODEC_ZSTD, zstandard.ZstdCompressor(level=3).compress(raw)
@@ -327,34 +377,68 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, template: Any, step: int | None = None, device=None, process_index: int = 0):
+def restore_checkpoint(ckpt_dir: str, template: Any, step: int | None = None, device=None, shardings: Any = None,
+                       process_index: int = 0):
     """Restore into the structure of ``template`` (a tree whose leaves have
-    ``.shape``: tensors, meta tensors or arrays) as tensors of the saved
-    dtypes, on ``device``, or each on its template leaf's device (the CPU
-    for an array or a meta tensor). Returns ``(tree, step, extra)``.
-    Without ``step``, the newest step first, falling back to the one before
-    when a shard is corrupt, partial or does not fit the template."""
+    ``.shape``: tensors, DTensors, meta tensors or arrays) as tensors of the
+    saved dtypes, on ``device``, or each on its template leaf's device (the
+    CPU for an array or a meta tensor); with ``shardings`` (a tree of
+    ``dist.NamedSharding`` of the template's structure) each leaf is placed
+    by its sharding instead, on whatever mesh it names. Returns ``(tree,
+    step, extra)``. Without ``step``, the newest step first, falling back to
+    the one before when a shard is corrupt, partial or does not fit the
+    template."""
     candidates = [step] if step is not None else list(reversed(available_steps(ckpt_dir)))
     leaves, keys = tree_leaves(template), _paths(template)
     last_err = None
     for s in candidates:
-        shard = os.path.join(ckpt_dir, f"step_{s:010d}", f"shard_{process_index:05d}.ckpt")
+        step_dir = os.path.join(ckpt_dir, f"step_{s:010d}")
         try:
-            payload = _load_shard(shard)
-            arrays = payload["arrays"]
+            payload = _load_shard(os.path.join(step_dir, f"shard_{process_index:05d}.ckpt"))
+            n = payload.get("n_processes", 1)
+            payloads = [payload]
+            if n > 1:  # a multi-process layout: every rank's blocks
+                payloads = [_load_shard(os.path.join(step_dir, f"shard_{r:05d}.ckpt")) for r in range(n)]
             out = []
             for key, leaf in zip(keys, leaves):
-                if key not in arrays:
-                    raise KeyError(f"checkpoint missing leaf {key}")
-                a = _unpack_array(arrays[key])
-                if tuple(a.shape) != tuple(leaf.shape):
-                    raise ValueError(f"shape mismatch for {key}: {tuple(a.shape)} vs {tuple(leaf.shape)}")
-                out.append(a.to(device if device is not None else _home(leaf)))
-            return tree_unflatten(template, out), payload["step"], payload.get("extra", {})
+                a = _assemble(payloads, key, tuple(leaf.shape))
+                out.append(a if shardings is not None else a.to(device if device is not None else _home(leaf)))
+            tree = tree_unflatten(template, out)
         except Exception as e:  # corrupt / partial / mismatched -> try older
             last_err = e
             continue
+        if shardings is not None:
+            from ..dist.sharding import device_put
+
+            tree = device_put(tree, shardings)
+        return tree, payload["step"], payload.get("extra", {})
     raise FileNotFoundError(f"no restorable checkpoint in {ckpt_dir}: {last_err}")
+
+
+def _assemble(payloads: list[dict], key: str, shape: tuple) -> torch.Tensor:
+    """Leaf ``key`` whole, from the blocks the shards hold of it."""
+    entries = [pl["arrays"][key] for pl in payloads if key in pl["arrays"]]
+    if not entries:
+        raise KeyError(f"checkpoint missing leaf {key}")
+    if len(entries) == 1 and "offset" not in entries[0]:
+        a = _unpack_array(entries[0])
+        if tuple(a.shape) != shape:
+            raise ValueError(f"shape mismatch for {key}: {tuple(a.shape)} vs {shape}")
+        return a
+    out, covered = None, 0
+    for e in entries:
+        a = _unpack_array(e)
+        offset = e.get("offset", [0] * len(shape))
+        index = tuple(slice(o, o + n) for o, n in zip(offset, a.shape))
+        if out is None:
+            out = torch.empty(shape, dtype=a.dtype)
+        if out[index].shape != a.shape:
+            raise ValueError(f"block of {key} at {offset} {tuple(a.shape)} does not fit {shape}")
+        out[index] = a
+        covered += a.numel()
+    if covered != out.numel():
+        raise ValueError(f"the blocks of {key} cover {covered} of its {out.numel()} elements")
+    return out
 
 
 def _home(leaf) -> torch.device:
@@ -370,12 +454,15 @@ def gc_checkpoints(ckpt_dir: str, keep: int = 3):
 
 
 class AsyncCheckpointer:
-    """Background writer thread; the train loop only pays the device-to-host copy."""
+    """Background writer thread; the train loop only pays the device-to-host
+    copy. ``process_index`` names this rank's shard, and rank 0's manifest
+    names ``n_processes``."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3, process_index: int = 0):
+    def __init__(self, ckpt_dir: str, keep: int = 3, process_index: int = 0, n_processes: int = 1):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self.process_index = process_index
+        self.n_processes = n_processes
         self.q: queue.Queue = queue.Queue(maxsize=2)
         self.errors: list[Exception] = []
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -387,8 +474,8 @@ class AsyncCheckpointer:
             try:
                 if item is None:
                     return
-                step, tree, extra = item
-                save_checkpoint(self.ckpt_dir, step, tree, extra, self.process_index)
+                step, blocks, extra = item
+                _write(self.ckpt_dir, step, blocks, extra, self.process_index, self.n_processes)
                 gc_checkpoints(self.ckpt_dir, self.keep)
             except Exception as e:  # surfaced by wait()
                 self.errors.append(e)
@@ -396,7 +483,8 @@ class AsyncCheckpointer:
                 self.q.task_done()
 
     def save(self, step: int, tree: Any, extra: dict | None = None):
-        self.q.put((step, _host_copy(tree), extra))  # synchronous copy; the write is async
+        # synchronous copy of this rank's blocks, no collective; the write is async
+        self.q.put((step, _host_copy(tree, self.process_index, self.n_processes), extra))
 
     def wait(self):
         """Block until all queued saves are durable; surface writer errors."""

@@ -6,7 +6,9 @@
   logged and counted (the signal a restart supervisor,
   ``launch.supervisor``, acts on),
 * crash recovery: any exception flushes a rescue checkpoint before
-  re-raising, so the supervisor restarts from the last good step.
+  re-raising, so the supervisor restarts from the last good step. Saving
+  issues no collective, so a rank whose step or data failed saves alone
+  while the others wait in a collective or have left.
 
 Each step is timed to its end: the loop waits for the first metric's value
 (``.item()``), which waits for the device's work on it.
@@ -52,6 +54,12 @@ def _step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device).manual_seed(int(state) & (2**63 - 1))
 
 
+def _rank_and_world() -> tuple[int, int]:
+    import torch.distributed as dist
+
+    return (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+
+
 def _device(tree):
     leaves = [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
     return leaves[0].device if leaves else torch.device("cpu")
@@ -67,19 +75,25 @@ def run_train_loop(
     resume: bool = True,
     log_fn: Callable[[str], None] = print,
     device=None,
+    shardings: Any = None,
 ) -> LoopState:
     """Run ``train_step(params, opt_state, batch[, generator]) -> (params,
     opt_state, metrics)`` to ``cfg.total_steps``. With ``seed`` each step
     also gets ``_step_generator(seed, step, device)`` (``device`` defaults to
     the parameters'). A resumed state is restored leaf by leaf onto the
-    devices of ``params`` and ``opt_state`` as given."""
+    devices of ``params`` and ``opt_state`` as given, or placed by
+    ``shardings`` (``{"params": ..., "opt_state": ...}`` of
+    ``dist.NamedSharding``). Over a process group each rank writes its own
+    checkpoint shard."""
     device = _device(params) if device is None else torch.device(device)
     state = LoopState(params=params, opt_state=opt_state)
     ckptr = None
     if cfg.ckpt_dir:
-        ckptr = AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep)
+        rank, world = _rank_and_world()
+        ckptr = AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep, process_index=rank, n_processes=world)
         if resume and latest_step(cfg.ckpt_dir) is not None:
-            tree, step, _ = restore_checkpoint(cfg.ckpt_dir, {"params": params, "opt_state": opt_state})
+            tree, step, _ = restore_checkpoint(cfg.ckpt_dir, {"params": params, "opt_state": opt_state},
+                                               shardings=shardings)
             state.params, state.opt_state = tree["params"], tree["opt_state"]
             state.step = step
             log_fn(f"[loop] resumed from step {step}")

@@ -16,8 +16,11 @@ def _token_nll(logits, labels):
     m = torch.amax(logits.detach(), dim=-1, keepdim=True)
     shifted = (logits - m).float()
     logz = torch.log(torch.sum(torch.exp(shifted), dim=-1))
-    gold = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
-    return logz - gold
+    gold = torch.gather(shifted, -1, labels.long()[..., None])
+    # the trailing dim is dropped after the subtraction: a gather from
+    # vocab-sharded logits stays a masked partial sum until then, and its
+    # mask has the gather's rank
+    return (logz[..., None] - gold)[..., 0]
 
 
 def _masked_mean(nll, mask):

@@ -362,12 +362,24 @@ def test_launch_train_defaults_to_the_card(monkeypatch):
         launch_train.main(["--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("flags", [["--model-parallel", "2"], ["--production-mesh"], ["--multipod"],
-                                   ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
-                                   ["--process-id", "0"]], ids=lambda f: f[0])
-def test_launch_train_distributed_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="distributed stack"):
+@pytest.mark.parametrize("flags,error,match", [pytest.param(f, e, m, id=f[0]) for f, e, m in [
+    (["--model-parallel", "2"], RuntimeError, "model axis of 2 does not divide 1 ranks"),
+    (["--production-mesh"], RuntimeError, "need 256 ranks"),
+    (["--multipod", "--production-mesh"], RuntimeError, "need 512 ranks"),
+    (["--coordinator", "localhost:1234"], KeyError, "NPROC"),
+    (["--num-processes", "2", "--coordinator", "localhost:1234"], KeyError, "PROCESS_ID"),
+    (["--process-id", "0", "--coordinator", "localhost:1234"], KeyError, "NPROC"),
+]])
+def test_launch_train_distributed_flags_raise(flags, error, match, monkeypatch):
+    """Every mesh and multi-process flag reaches the distributed stack: a
+    launch that one process cannot satisfy raises what the JAX launcher
+    raises (too few ranks for the mesh; a coordinator without the process
+    count or index, in flags or env vars), and leaves no process group."""
+    for var in ("COORDINATOR_ADDRESS", "NPROC", "PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(error, match=match):
         launch_train.main(["--smoke", "--steps", "1", "--device", "cpu", *flags])
+    assert not torch.distributed.is_initialized()
 
 
 def test_supervise_restarts_a_command_that_fails_once(tmp_path):
@@ -389,16 +401,13 @@ def test_supervisor_gives_up_with_the_command_exit_code():
 # ---------------------------------------------------------------- namespaces
 
 # names of the JAX package's namespaces whose pieces are not ported yet:
-# the TPU engine pair, the data loader's mesh placement and the mixed-
-# precision cast wait for the distributed stack and the dry-run family
+# the TPU engine pair waits for its card counterpart
 UNPORTED = {
     "core": {"tpu_submesh_engines", "TPU_V5E_BF16_FLOPS", "TPU_V5E_HBM_BW", "TPU_V5E_ICI_BW"},
-    "data": {"shard_batch"},
-    "nn": {"cast_tree"},
 }
 
 
-@pytest.mark.parametrize("pkg", ["core", "serve", "kernels", "train", "data", "nn", "models", "configs"])
+@pytest.mark.parametrize("pkg", ["core", "serve", "kernels", "train", "data", "nn", "models", "configs", "dist"])
 def test_port_namespaces_export_the_jax_names(pkg):
     """Every name the JAX package's ``__init__.py`` exports (read from its
     source, without importing JAX) is an attribute of the port's package

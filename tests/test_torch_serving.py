@@ -195,6 +195,9 @@ NEW_MODULES = [
     # LM training
     "repro_torch.train.checkpoint", "repro_torch.train.loop", "repro_torch.launch.train",
     "repro_torch.launch.supervisor",
+    # the distributed stack
+    "repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.dist.compress", "repro_torch.launch.mesh",
+    "repro_torch.launch.distributed",
 ]
 
 
