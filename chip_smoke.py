@@ -151,7 +151,14 @@ toolkit, this
    two error-feedback steps) on a one-rank mesh against the same call on
    the CPU (within one quantization step per element), and a checkpoint
    saved on the mesh path and resumed with ``shardings=`` whose continued
-   run is bit-equal to an unbroken one.
+   run is bit-equal to an unbroken one;
+14. the dry run (``dryrun_phase``): ``repro_torch.launch.dryrun.run_cell``
+   on ``DRYRUN_CELLS`` at full width and depth in a spawned process (its
+   fake 256- or 512-rank process group never meets this process's NCCL
+   groups, and the process makes no CUDA context): each cell's step on
+   ``meta`` DTensors counted per rank, its three roofline terms predicted
+   for the H100 SXM's peaks, bottleneck, per-rank memory and collective
+   counts printed; any cell that is not ``ok`` fails the run.
 
 The ``kernels`` line's ``flash_attention`` and ``ssd`` rows stay those of
 the bf16 Hymba-1.5B prefill (9), comparable across runs; the zoo's are in
@@ -2316,8 +2323,9 @@ def _local(t):
 def mesh_vs_plain_step1(torch, smi, dev, cfg, init, steps):
     """Step 1 of the launcher's gemma2-2b run through the distributed stack
     (a one-rank NCCL mesh, ``train_shardings``, ``device_put``, ``on_mesh``,
-    ``shard_batch``) against the same step on plain tensors, from the same
-    parameters and batch; then one more mesh step under torch.profiler."""
+    ``shard_batch``, ``act_spec`` set) against the same step on plain
+    tensors, from the same parameters and batch; then one more mesh step
+    under torch.profiler."""
     import torch.distributed as dist
 
     from repro_torch.configs import build_model
@@ -2328,7 +2336,9 @@ def mesh_vs_plain_step1(torch, smi, dev, cfg, init, steps):
     from repro_torch.train import AdamW, make_lm_train_step
     from repro_torch.train.optimizer import warmup_cosine
 
-    model = build_model(cfg)
+    # the activation constraint the dry run's train cells set (the batch over
+    # "data"): on a one-rank mesh it is the identity
+    model = build_model(dataclasses.replace(cfg, act_spec=("data",)))
     opt = AdamW(lr=warmup_cosine(1e-3, 50, steps), weight_decay=0.01)
     data = token_batches(LM_TRAIN_B, LM_TRAIN_S, cfg.vocab, seed=0)
     host = [next(data) for _ in range(2)]
@@ -2810,6 +2820,59 @@ def dist_phase(torch, smi, dev):
     return rows
 
 
+# (arch, shape, multi-pod) cells of the dry run (``dryrun_phase``): gemma2-2b's
+# training and decode cells and mamba2-2.7b's batch-1 decode over 524,288
+# tokens (the sequence-sharded caches), on the 16 x 16 mesh. No 2 x 16 x 16
+# cell: on the card's torch 2.11 each fails in DTensor (the embedding lookup's
+# index is split over "pod" and "data", which 2.11's aten.index.Tensor refuses,
+# and Whisper's LayerNorm needs aten.var_mean, which it has no strategy for);
+# torch 2.13 runs them all (ROADMAP §3)
+DRYRUN_CELLS = (("gemma2_2b", "train_4k", False), ("gemma2_2b", "decode_32k", False),
+                ("mamba2_2_7b", "long_500k", False))
+
+
+def _dryrun_cells(cells):
+    """The dry-run cells in a process of their own (spawned): rows, and
+    whether the process ever made a CUDA context (it must not)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.launch.dryrun import run_cell
+
+    torch.set_num_threads(1)
+    rows = [run_cell(arch, shape, multi_pod) for arch, shape, multi_pod in cells]
+    return rows, torch.cuda.is_initialized()
+
+
+def dryrun_phase(smi):
+    """The dry run (the docstring's item 14): ``launch.dryrun.run_cell`` on
+    ``DRYRUN_CELLS`` at full width and depth in a spawned process, its fake
+    256- or 512-rank group apart from this process's groups; every cell
+    ``ok`` and no CUDA context in that process. Returns the rows."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as ex:
+        rows, touched_card = ex.submit(_dryrun_cells, DRYRUN_CELLS).result(timeout=900)
+    wall = time.perf_counter() - t0
+    for r in rows:
+        if r["status"] != "ok":
+            raise AssertionError(f"dry run {r['arch']} {r['shape']} {r['mesh']}: {r['status']} {r.get('error')}\n"
+                                 f"{r.get('trace', '')}")
+        counts = {k: v for k, v in r["collective_counts"].items() if k != "bytes_by_kind"}
+        gib = {k: v / 2**30 for k, v in r["collective_counts"]["bytes_by_kind"].items() if v}
+        print(f"dry run {r['arch']} {r['shape']} {r['mesh']} (predicted for the H100 SXM's peaks): "
+              f"compute {r['t_compute_s'] * 1e3:.3f} ms, memory {r['t_memory_s'] * 1e3:.3f} ms, "
+              f"collective {r['t_collective_s'] * 1e3:.3f} ms, bottleneck {r['bottleneck']}, per-rank memory "
+              f"{r['memory_per_device']['total'] / 2**30:.2f} GiB, collectives {counts} "
+              "(GiB by kind " + ", ".join(f"{k} {v:.3f}" for k, v in gib.items()) + "), "
+              f"build {r['t_lower_s']} s, counted run {r['t_compile_s']} s (host)")
+    if touched_card:
+        raise AssertionError("the dry run's process made a CUDA context")
+    print(f"dry run: {len(rows)} cells ok in {wall:.1f} s on the host, no CUDA context in their process | {smi}")
+    return rows
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--json", help="also write every measured row to this file")
@@ -3202,6 +3265,9 @@ def main() -> int:
           "refusal, compressed gradients vs the CPU, a checkpoint resumed on the mesh")
     dist_rows = dist_phase(torch, smi, dev)
     lap("distributed")
+    print("-- the dry run: production-mesh cells on meta tensors over a fake process group, in a spawned process")
+    dryrun_rows = dryrun_phase(smi)
+    lap("dry run")
 
     kernels = []
     for n in REPLACES:
@@ -3240,6 +3306,7 @@ def main() -> int:
              "hymba_prefill": prefill_rows, "lm_per_prefill": lm_tot, "hymba_decode": decode_row,
              "flash_ptxas": flash_tc, "launcher": launcher_rows, "served_ab": served_rows,
              "fleets": fleet_rows, "lm_zoo": zoo_rows, "lm_train": train_lm_rows, "dist": dist_rows,
+             "dryrun": dryrun_rows,
              "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

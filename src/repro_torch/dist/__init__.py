@@ -5,9 +5,13 @@ from .sharding import (
     NamedSharding,
     PartitionSpec,
     TrainShardings,
+    abstract_put,
     batch_sharding,
+    cache_shardings,
+    constrain,
     default_rules,
     device_put,
+    mesh_ops,
     on_mesh,
     opt_state_shardings,
     spec_for_axes,

@@ -16,11 +16,16 @@ DTensor's mesh (its dims of more than one rank) and ``placements``
 elsewhere). Where one tensor dim is split over two
 mesh axes, DTensor orders the blocks by mesh dim and JAX by the spec: the
 global values are the same either way. ``device_put`` places a tree by its
-shardings (``jax.device_put``), and ``on_mesh`` runs a step over DTensors
-(``jax.jit`` with ``in_shardings``).
+shardings (``jax.device_put``), ``abstract_put`` places a tree of ``meta``
+tensors without a copy (the dry-run's ``ShapeDtypeStruct``s passed with
+``in_shardings``), ``on_mesh`` runs a step over DTensors (``jax.jit`` with
+``in_shardings``) and ``constrain`` is the models' activation constraint
+(``jax.lax.with_sharding_constraint``). ``cache_shardings`` places the
+decode caches; the JAX package has no counterpart to hold it against.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -202,6 +207,63 @@ def opt_state_shardings(mesh, params_shardings, opt_state):
     return branch(opt_state)
 
 
+# a decode cache leaf's dims by its key (a stacked leaf has the layer dim
+# before them): "batch", "seq", "heads" are placed by ``cache_shardings``
+_CACHE_AXES = {
+    "k": ("batch", "seq", "heads", None),
+    "v": ("batch", "seq", "heads", None),
+    "cross_k": ("batch", "seq", "heads", None),
+    "cross_v": ("batch", "seq", "heads", None),
+    "c_kv": ("batch", "seq", None),
+    "k_r": ("batch", "seq", None),
+    "conv": ("batch", None, None),
+    "ssm": ("batch", "heads", None, None),
+}
+
+
+def _map_named(fn, tree, name=None):
+    """``fn(key, leaf)`` over a tree's leaves, ``key`` the innermost dict key."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_named(fn, v, name) for v in tree)
+    return fn(name, tree)
+
+
+def cache_shardings(mesh, caches, rules, seq_sharded=False):
+    """NamedSharding per leaf of a model's decode caches (``init_caches``'
+    tree, stacked or not), by the leaf's key:
+
+    ======================  =======================  ==========================
+    leaf                    dims                     spec
+    ======================  =======================  ==========================
+    k, v, cross_k, cross_v  (B, S, kv heads, D)      (batch, seq, model, None)
+    c_kv, k_r (MLA)         (B, S, width)            (batch, seq, None)
+    conv (SSM)              (B, d_conv - 1, chans)   (batch, None, None)
+    ssm (SSM)               (B, H, P, N)             (batch, model, None, None)
+    ======================  =======================  ==========================
+
+    ``batch`` is ``rules["batch"]`` (the data-like dims) and ``seq`` None;
+    with ``seq_sharded`` (batch-1 decode: sequence parallelism) ``seq`` is
+    ``rules["batch"]`` and ``batch`` None. ``model`` is the mesh's
+    tensor-parallel dims. A stacked leaf keeps its leading layer dim whole.
+    Every spec is fitted by ``_fit_spec``: a dim that a mesh axis does not
+    divide (4 KV heads on a 16-way model axis) drops it."""
+    data = rules.get("batch")
+    model = tuple(a for a in mesh.mesh_dim_names if a in _MODEL_MESH_NAMES) or None
+    dims = {"batch": None if seq_sharded else data, "seq": data if seq_sharded else None, "heads": model}
+
+    def leaf(name, x):
+        axes = _CACHE_AXES[name]
+        lead = x.ndim - len(axes)
+        if lead not in (0, 1):
+            raise ValueError(f"cache leaf {name!r} of shape {tuple(x.shape)} is not {axes}, stacked or not")
+        spec = (None,) * lead + tuple(dims.get(a) for a in axes)
+        return NamedSharding(mesh, P(*_fit_spec(spec, tuple(x.shape), mesh)))
+
+    return _map_named(leaf, caches)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainShardings:
     """The full sharding plumbing of one train launch."""
@@ -273,6 +335,31 @@ def device_put(tree, shardings):
     return tree_map(put, tree, shardings)
 
 
+def abstract_put(tree, shardings):
+    """``jax.device_put``'s counterpart for abstract leaves (shapes and
+    dtypes; ``meta`` tensors): each leaf as a DTensor placed by its
+    ``NamedSharding`` (one for every leaf, or a tree of them) whose local
+    tensor is this rank's block as a ``meta`` tensor, with the leaf's global
+    shape and stride. No copy and no collective; nothing is allocated. Every
+    placement must divide its dim (shardings fitted by ``_fit_spec`` do)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    def put(x, sh):
+        mesh, placements = sh.device_mesh, sh.placements
+        local = list(x.shape)
+        for i, pl in enumerate(placements):
+            if isinstance(pl, Shard):
+                if local[pl.dim] % mesh.size(i):
+                    raise ValueError(f"{sh.spec} does not divide shape {tuple(x.shape)} on mesh {mesh}")
+                local[pl.dim] //= mesh.size(i)
+        block = torch.empty(local, dtype=x.dtype, device="meta")
+        return DTensor.from_local(block, mesh, placements, run_check=False, shape=x.shape, stride=x.stride())
+
+    if isinstance(shardings, NamedSharding):
+        return tree_map(lambda x: put(x, shardings), tree)
+    return tree_map(put, tree, shardings)
+
+
 def to_global(x):
     """A DTensor's whole value as a plain tensor on every rank (a
     collective where it is sharded or partial); any other leaf as it is."""
@@ -295,20 +382,45 @@ def _register_strategies():
         return [([Replicate()], [Replicate(), Replicate()])]
 
 
-def on_mesh(step):
-    """``step`` over DTensor trees (``jax.jit`` with ``in_shardings``): the
-    plain tensors the model makes for itself (positions, rope tables, masks)
-    join the DTensors as replicated values (``implicit_replication``), and
-    the returned metrics are whole tensors on every rank. An op that DTensor
-    has no sharding strategy for raises."""
+@contextlib.contextmanager
+def mesh_ops():
+    """The models' ops over DTensors: the plain tensors a model makes for
+    itself (positions, rope tables, masks) join the DTensors as replicated
+    values (``implicit_replication``), and the ops DTensor lacks have their
+    strategies. An op that DTensor has no sharding strategy for raises."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     _register_strategies()
+    with implicit_replication():
+        yield
+
+
+def on_mesh(step):
+    """``step`` over DTensor trees (``jax.jit`` with ``in_shardings``), its
+    ops under ``mesh_ops``; the returned metrics are whole tensors on every
+    rank."""
 
     @functools.wraps(step)
     def run(params, opt_state, batch, *args):
-        with implicit_replication():
+        with mesh_ops():
             params, opt_state, metrics = step(params, opt_state, batch, *args)
             return params, opt_state, tree_map(to_global, metrics)
 
     return run
+
+
+def constrain(x, act_spec):
+    """``jax.lax.with_sharding_constraint(x, P(tuple(act_spec)))`` for an
+    activation: a DTensor's leading (batch) dim redistributed over the
+    ``act_spec`` dims its mesh carries, its other dims replicated. The
+    identity on a plain tensor, when ``act_spec`` is None, when the mesh
+    carries none of those names, and on a one-rank mesh."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if act_spec is None or not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    names = set(act_spec) & set(mesh.mesh_dim_names)
+    if not names or mesh.size() == 1:
+        return x
+    return x.redistribute(mesh, tuple(Shard(0) if n in names else Replicate() for n in mesh.mesh_dim_names))

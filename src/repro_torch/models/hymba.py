@@ -19,6 +19,7 @@ from typing import Any
 
 import torch
 
+from ..dist.sharding import constrain
 from ..nn import MLP, Attention, Embedding, Mamba2Block, Module, RMSNorm, Stacked
 from ..nn.module import checkpointed, layer, tree_map, tree_stack
 
@@ -47,7 +48,7 @@ class HymbaConfig:
     act_dtype: Any = torch.bfloat16
     attn_chunk: int = 1024
     remat: bool = True  # checkpoint each block under autograd
-    act_spec: Any = None  # the JAX package's sharding constraint: waits for the distributed stack
+    act_spec: Any = None  # mesh dims: the activations around each block, batch-sharded over them
 
     def windows(self):
         return tuple(0 if i in self.global_layers else self.local_window for i in range(self.n_layers))
@@ -127,8 +128,9 @@ class HymbaBlock(Module):
         m, st = c.mamba().decode(p["mamba"], h, cache["ssm"])
         return self._fuse_and_mlp(p, x, a, m), {"kv": kv, "ssm": st}
 
-    def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
+    def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None, abstract=False):
         c = self.cfg
+        device = "meta" if abstract else device
         return {
             "kv": c.attn().init_cache(batch, max_len, dtype, device),
             "ssm": c.mamba().init_cache(batch, dtype, device),
@@ -169,7 +171,8 @@ class HymbaLM(Module):
         x = self._embed(p, tokens)
         blk = checkpointed(HymbaBlock(c), c.remat)
         for i, w in enumerate(c.windows()):
-            x = blk(layer(p["blocks"], i), x, positions, w, index_positions=index)
+            x = constrain(blk(layer(p["blocks"], i), constrain(x, c.act_spec), positions, w, index_positions=index),
+                          c.act_spec)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
             return RMSNorm(c.d_model, c.norm_eps)(p["final_norm"], x), aux
@@ -178,8 +181,9 @@ class HymbaLM(Module):
     def head(self, p, x):
         return Embedding(self.cfg.vocab, self.cfg.d_model).attend(p["embed"], x)
 
-    def init_caches(self, batch, max_len, dtype=torch.bfloat16, device=None):
-        one = HymbaBlock(self.cfg).init_cache(batch, max_len, dtype, device)
+    def init_caches(self, batch, max_len, dtype=torch.bfloat16, device=None, abstract=False):
+        """Every layer's cache, stacked; ``abstract``: as ``meta`` tensors."""
+        one = HymbaBlock(self.cfg).init_cache(batch, max_len, dtype, device, abstract=abstract)
         return tree_map(lambda a: a.expand(self.cfg.n_layers, *a.shape).clone(), one)
 
     def prefill(self, p, tokens, positions=None, cache_dtype=torch.bfloat16):

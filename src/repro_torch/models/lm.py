@@ -23,6 +23,7 @@ from typing import Any
 
 import torch
 
+from ..dist.sharding import constrain
 from ..nn import MLP, Attention, Embedding, Linear, MLAAttention, MoE, Module, RMSNorm, Stacked
 from ..nn.module import checkpointed, layer, tree_map, tree_stack
 
@@ -32,8 +33,8 @@ class LMConfig:
     """The JAX package's ``LMConfig``, field for field. ``act_dtype`` is a
     torch dtype. ``remat`` and ``remat_policy`` checkpoint each block's
     activations under autograd (``nn.module.checkpointed``); ``act_spec``
-    (the JAX package's sharding constraint) is kept so that configs copy
-    across, and waits for the distributed stack."""
+    (mesh dims) constrains the activations around each stacked block, over
+    DTensors, to batch-sharded over those dims (``dist.constrain``)."""
 
     name: str
     n_layers: int
@@ -215,6 +216,9 @@ class LMBlock(Module):
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
         return self._attn().init_cache(batch, max_len, dtype, device)
 
+    def abstract_cache(self, batch, max_len, dtype=torch.bfloat16):
+        return self._attn().abstract_cache(batch, max_len, dtype)
+
 
 @dataclasses.dataclass(frozen=True)
 class TransformerLM(Module):
@@ -294,9 +298,13 @@ class TransformerLM(Module):
         positions, index = self._positions(tokens, positions)
         x = self._embed(p, tokens, extra_embeds, embed_positions)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for blk, bp, w in self._layers(p):
+        spec = self.cfg.act_spec
+        for i, (blk, bp, w) in enumerate(self._layers(p)):
+            stacked = i >= self.n_dense  # the JAX model constrains around its scanned blocks
+            x = constrain(x, spec) if stacked else x
             x, aux = checkpointed(blk, self.cfg.remat, self.cfg.remat_policy)(bp, x, positions, w,
                                                                               index_positions=index)
+            x = constrain(x, spec) if stacked else x
             aux_total = aux_total + aux
         x = self._final(p, x)
         if return_hidden:
@@ -312,11 +320,13 @@ class TransformerLM(Module):
         w = self.cfg.windows()[layer_idx]
         return max_len if w == 0 else min(max_len, w)
 
-    def init_caches(self, batch, max_len, dtype=torch.bfloat16, device=None):
+    def init_caches(self, batch, max_len, dtype=torch.bfloat16, device=None, abstract=False):
         """``{"dense": [one cache per dense block], "scan": the stacked
         caches}``; the stacked layers share one cache length, the largest
-        of theirs, as the JAX package's scan needs."""
+        of theirs, as the JAX package's scan needs. ``abstract``: the same
+        tree as ``meta`` tensors."""
         c = self.cfg
+        device = "meta" if abstract else device
         dense = [LMBlock(c, use_moe=False).init_cache(batch, self._cache_len(i, max_len), dtype, device)
                  for i in range(self.n_dense)]
         scan_len = max(self._cache_len(i, max_len) for i in range(self.n_dense, c.n_layers))

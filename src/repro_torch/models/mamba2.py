@@ -14,6 +14,7 @@ from typing import Any
 
 import torch
 
+from ..dist.sharding import constrain
 from ..nn import Embedding, Mamba2Block, Module, RMSNorm, Stacked
 from ..nn.module import checkpointed, layer, tree_map, tree_stack
 
@@ -22,8 +23,8 @@ from ..nn.module import checkpointed, layer, tree_map, tree_stack
 class Mamba2Config:
     """The JAX package's ``Mamba2Config``, field for field; ``act_dtype`` is
     a torch dtype, ``remat`` checkpoints each layer under autograd, and
-    ``act_spec`` (the JAX package's sharding constraint) waits for the
-    distributed stack."""
+    ``act_spec`` (mesh dims) constrains the activations around each layer,
+    over DTensors, to batch-sharded over those dims (``dist.constrain``)."""
 
     name: str
     n_layers: int
@@ -119,7 +120,7 @@ class Mamba2LM(Module):
         x = self._embed(p, tokens)
         blk = checkpointed(Mamba2LayerWrapped(self.cfg), self.cfg.remat)
         for i in range(self.cfg.n_layers):
-            x = blk(layer(p["blocks"], i), x)
+            x = constrain(blk(layer(p["blocks"], i), constrain(x, self.cfg.act_spec)), self.cfg.act_spec)
         x = self._final(p, x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return (x, aux) if return_hidden else (self._logits(p, x), aux)
@@ -127,10 +128,12 @@ class Mamba2LM(Module):
     def head(self, p, x):
         return self._logits(p, x)
 
-    def init_caches(self, batch, max_len=0, dtype=torch.bfloat16, device=None):
+    def init_caches(self, batch, max_len=0, dtype=torch.bfloat16, device=None, abstract=False):
         """The per-layer (conv, ssm) state, stacked; ``max_len`` is taken for
-        the other models' signature (the state does not grow)."""
-        one = self.cfg.block().init_cache(batch, dtype, device)
+        the other models' signature (the state does not grow). ``abstract``:
+        the same tree as ``meta`` tensors."""
+        b = self.cfg.block()
+        one = b.abstract_cache(batch, dtype) if abstract else b.init_cache(batch, dtype, device)
         return tree_map(lambda a: a.expand(self.cfg.n_layers, *a.shape).clone(), one)
 
     def prefill(self, p, tokens, positions=None, cache_dtype=torch.bfloat16):

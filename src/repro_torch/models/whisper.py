@@ -131,10 +131,12 @@ class DecBlock(Module):
         x = x + c.mlp()(p["mlp"], c.norm()(p["ln2"], x))
         return x, {"self": self_kv, "cross_k": cache["cross_k"], "cross_v": cache["cross_v"]}
 
-    def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
+    def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None, abstract=False):
         """The decoder's self-attention cache and zero cross caches (a
-        decode-only run attends to them, as the JAX package's does)."""
+        decode-only run attends to them, as the JAX package's does);
+        ``abstract``: as ``meta`` tensors."""
         c = self.cfg
+        device = "meta" if abstract else device
         cross_shape = (batch, c.n_frames, c.n_heads, c.head_dim)
         return {
             "self": c.attn().init_cache(batch, max_len, dtype, device),
@@ -198,8 +200,8 @@ class WhisperModel(Module):
         c = self.cfg
         return Embedding(c.vocab, c.d_model).attend(p["embed"], x)
 
-    def init_caches(self, batch, max_len, dtype=torch.bfloat16, device=None):
-        one = DecBlock(self.cfg).init_cache(batch, max_len, dtype, device)
+    def init_caches(self, batch, max_len, dtype=torch.bfloat16, device=None, abstract=False):
+        one = DecBlock(self.cfg).init_cache(batch, max_len, dtype, device, abstract=abstract)
         return tree_map(lambda a: a.expand(self.cfg.n_dec_layers, *a.shape).clone(), one)
 
     def prefill(self, p, frames, tokens, cache_dtype=torch.bfloat16):

@@ -207,6 +207,10 @@ class Attention(Module):
         shape = (batch, max_len, self.n_kv, self.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
 
+    def abstract_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
+        """``init_cache``'s tree as ``meta`` tensors."""
+        return self.init_cache(batch, max_len, dtype, "meta")
+
     def decode(self, p, x, cache, t: int, window=None):
         """x: (B,1,d); t: index of the new token. Returns (y, cache); the
         cache given is not modified (a new one is returned, as in JAX). The
@@ -335,6 +339,10 @@ class MLAAttention(Module):
             "c_kv": torch.zeros((batch, max_len, self.kv_lora), dtype=dtype, device=device),
             "k_r": torch.zeros((batch, max_len, self.qk_rope_dim), dtype=dtype, device=device),
         }
+
+    def abstract_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
+        """``init_cache``'s tree as ``meta`` tensors."""
+        return self.init_cache(batch, max_len, dtype, "meta")
 
     def decode(self, p, x, cache, t: int, window=None):
         """x: (B,1,d). The new latents go to slot min(t, S - 1), as

@@ -59,6 +59,37 @@ class _RowMajorGrad(torch.autograd.Function):
         return g.contiguous()
 
 
+class _FlatHeads(torch.autograd.Function):
+    """(b, s, h, p) -> (b, s, h * p), whose gradient is viewed back to
+    heads only after a mesh dim that splits the flat dim into pieces of
+    heads is gathered: DTensor cannot view such a split (GSPMD pads it).
+    The out-projection's weights, sharded on that dim over the model axis,
+    hand the gradient back so: hymba-1.5b's 3,200 = 50 heads x 64 over 16
+    ranks. The values are unchanged."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.heads = tuple(y.shape[2:])
+        return y.reshape(*y.shape[:2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_heads(g, ctx.heads[0]).reshape(*g.shape[:2], *ctx.heads)
+
+
+def _whole_heads(g, heads: int):
+    """``g`` with its last dim gathered where the mesh dims that shard it do
+    not split ``heads`` evenly; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(g, DTensor):
+        return g
+    last = [i for i, pl in enumerate(g.placements) if isinstance(pl, Shard) and pl.dim == g.ndim - 1]
+    if heads % math.prod(g.device_mesh.size(i) for i in last) == 0:
+        return g
+    return g.redistribute(g.device_mesh, [Replicate() if i in last else pl for i, pl in enumerate(g.placements)])
+
+
 @dataclasses.dataclass(frozen=True)
 class Mamba2Block(Module):
     d_model: int
@@ -129,11 +160,15 @@ class Mamba2Block(Module):
         if dt.requires_grad:
             dt = _RowMajorGrad.apply(dt)
         A = -torch.exp(p["A_log"].float()).to(x.dtype)  # (H,)
-        scan = ssd_chunked if grad_route("ssd", xs, dt, A, Bmat, Cmat) else ssd_ops.ssd
+        # the kernel on a CUDA tensor where autograd needs no gradient; the
+        # plain scan elsewhere (the CPU, a dry run's meta tensors, training)
+        kernel = xs.device.type == "cuda" and not grad_route("ssd", xs, dt, A, Bmat, Cmat)
+        scan = ssd_ops.ssd if kernel else ssd_chunked
         out = scan(xs, dt, A, Bmat, Cmat, chunk=min(self.chunk, S), return_state=return_state)
         y, state = out if return_state else (out, None)
         y = y + xs * p["D"].to(x.dtype)[None, None, :, None]
-        y = RMSNorm(di)(p["norm"], y.reshape(B_, S, di)) * F.silu(z)
+        y = _FlatHeads.apply(y) if y.requires_grad else y.reshape(B_, S, di)
+        y = RMSNorm(di)(p["norm"], y) * F.silu(z)
         return y @ p["out_proj"].to(x.dtype), state
 
     def __call__(self, p, x):
@@ -154,6 +189,10 @@ class Mamba2Block(Module):
             "ssm": torch.zeros((batch, self.n_heads, self.head_dim, self.d_state), dtype=torch.float32,
                                device=device),
         }
+
+    def abstract_cache(self, batch: int, dtype=torch.bfloat16):
+        """``init_cache``'s tree as ``meta`` tensors."""
+        return self.init_cache(batch, dtype, "meta")
 
     def decode(self, p, x, cache):
         """x: (B, 1, d) -> (y (B,1,d), cache)."""

@@ -9,6 +9,25 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 
+def _one_vocab_split(logits):
+    """``logits`` with the vocab (last) dim split over one mesh dim at most,
+    the largest of those that split it; a plain tensor as it is. DTensor's
+    gather from a vocab-sharded tensor gives the index one masked partial
+    per splitting mesh dim, all sharing one mask, and refuses a second mask
+    as conflicting (phi4-mini's 200,064 tokens over "model" and "pod")."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(logits, DTensor):
+        return logits
+    mesh = logits.device_mesh
+    split = [i for i, pl in enumerate(logits.placements) if isinstance(pl, Shard) and pl.dim == logits.ndim - 1]
+    if len(split) < 2:
+        return logits
+    keep = max(split, key=mesh.size)
+    return logits.redistribute(mesh, [Replicate() if i in split and i != keep else pl
+                                      for i, pl in enumerate(logits.placements)])
+
+
 def _token_nll(logits, labels):
     """Per-token NLL (..., V) -> (...): the max detached, the shifted
     logits in fp32 (subtracted in the logits' dtype, then cast, as the JAX
@@ -16,7 +35,7 @@ def _token_nll(logits, labels):
     m = torch.amax(logits.detach(), dim=-1, keepdim=True)
     shifted = (logits - m).float()
     logz = torch.log(torch.sum(torch.exp(shifted), dim=-1))
-    gold = torch.gather(shifted, -1, labels.long()[..., None])
+    gold = torch.gather(_one_vocab_split(shifted), -1, labels.long()[..., None])
     # the trailing dim is dropped after the subtraction: a gather from
     # vocab-sharded logits stays a masked partial sum until then, and its
     # mask has the gather's rank

@@ -8,8 +8,8 @@ rate are 0-d CPU tensors (int32 and float32, as JAX's), so an update on the
 card never waits for the host. Updates run under ``torch.no_grad()`` and
 return new tensors; ``AdamW.update_`` is the same update written into the
 buffers it is given (the JAX launcher donates them to its jitted step).
-
-(``abstract_state`` comes with the distributed stack.)
+``abstract_state`` is ``init``'s tree as ``meta`` tensors (JAX's
+``ShapeDtypeStruct``s), for the dry-run cells.
 """
 from __future__ import annotations
 
@@ -49,6 +49,10 @@ def clip_by_global_norm(tree, max_norm: float):
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
 
 
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def _lr(lr, step):
     return lr(step) if callable(lr) else torch.tensor(lr, dtype=torch.float32)
 
@@ -74,6 +78,15 @@ class AdamW:
         }
         if self.master_weights:
             st["master"] = tree_map(lambda p: p.detach().float().clone(), params)
+        return st
+
+    def abstract_state(self, abstract_params):
+        """``init``'s tree, shapes and dtypes, as ``meta`` tensors."""
+        f32 = lambda p: _meta(p.shape)  # noqa: E731
+        st = {"m": tree_map(f32, abstract_params), "v": tree_map(f32, abstract_params),
+              "step": _meta((), torch.int32)}
+        if self.master_weights:
+            st["master"] = tree_map(f32, abstract_params)
         return st
 
     @torch.no_grad()
@@ -180,6 +193,10 @@ class SGD:
             "mom": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params),
             "step": torch.zeros((), dtype=torch.int32),
         }
+
+    def abstract_state(self, abstract_params):
+        """``init``'s tree, shapes and dtypes, as ``meta`` tensors."""
+        return {"mom": tree_map(lambda p: _meta(p.shape), abstract_params), "step": _meta((), torch.int32)}
 
     @torch.no_grad()
     def update(self, grads, state, params):
