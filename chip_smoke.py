@@ -153,12 +153,16 @@ toolkit, this
    saved on the mesh path and resumed with ``shardings=`` whose continued
    run is bit-equal to an unbroken one;
 14. the dry run (``dryrun_phase``): ``repro_torch.launch.dryrun.run_cell``
-   on ``DRYRUN_CELLS`` at full width and depth in a spawned process (its
-   fake 256- or 512-rank process group never meets this process's NCCL
-   groups, and the process makes no CUDA context): each cell's step on
-   ``meta`` DTensors counted per rank, its three roofline terms predicted
-   for the H100 SXM's peaks, bottleneck, per-rank memory and collective
-   counts printed; any cell that is not ``ok`` fails the run.
+   on ``DRYRUN_CELLS`` (16 x 16 and 2 x 16 x 16 cells) at full width and
+   depth and one call of ``experiments/torch_hillclimb.py``'s ``run``
+   (``HILLCLIMB``) in spawned processes, one task each (their fake 256- or
+   512-rank process groups never meet this process's NCCL groups, and
+   none of them makes a CUDA context): each cell's step on ``meta``
+   DTensors counted per rank, its three roofline terms predicted for the
+   H100 SXM's peaks, bottleneck, per-rank memory and collective counts
+   printed; any cell that is not ``ok`` fails the run; then the paper's
+   Pix2Pix + YOLOv8 graphs planned once on the host over
+   ``h100_submesh_engines()`` (cut points, expected cycle).
 
 The ``kernels`` line's ``flash_attention`` and ``ssd`` rows stay those of
 the bf16 Hymba-1.5B prefill (9), comparable across runs; the zoo's are in
@@ -2822,55 +2826,96 @@ def dist_phase(torch, smi, dev):
 
 # (arch, shape, multi-pod) cells of the dry run (``dryrun_phase``): gemma2-2b's
 # training and decode cells and mamba2-2.7b's batch-1 decode over 524,288
-# tokens (the sequence-sharded caches), on the 16 x 16 mesh. No 2 x 16 x 16
-# cell: on the card's torch 2.11 each fails in DTensor (the embedding lookup's
-# index is split over "pod" and "data", which 2.11's aten.index.Tensor refuses,
-# and Whisper's LayerNorm needs aten.var_mean, which it has no strategy for);
-# torch 2.13 runs them all (ROADMAP §3)
+# tokens (the sequence-sharded caches) on the 16 x 16 mesh; mamba2-2.7b's and
+# whisper-small's prefills on the 2 x 16 x 16 mesh (the batch over "pod" and
+# "data"; on torch 2.11 they need the embedding lookup as aten.embedding and
+# the strategies dist.mesh_ops registers for Mamba2's causal pad and
+# LayerNorm's var_mean)
 DRYRUN_CELLS = (("gemma2_2b", "train_4k", False), ("gemma2_2b", "decode_32k", False),
-                ("mamba2_2_7b", "long_500k", False))
+                ("mamba2_2_7b", "long_500k", False), ("mamba2_2_7b", "prefill_32k", True),
+                ("whisper_small", "prefill_32k", True))
+# experiments/torch_hillclimb.py's own example: (arch, shape, variant)
+HILLCLIMB = ("mamba2_2_7b", "train_4k", {"n_micro": 2})
 
 
-def _dryrun_cells(cells):
-    """The dry-run cells in a process of their own (spawned): rows, and
-    whether the process ever made a CUDA context (it must not)."""
+def _dryrun_task(task):
+    """One dry-run task in a process of its own (spawned): a cell's row
+    (``("cell", (arch, shape, multi_pod))``) or the hillclimb script's
+    (``("hillclimb", (arch, shape, variant))``), its host seconds, and
+    whether the process has made a CUDA context (it must not)."""
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "experiments"))
     import torch
 
-    from repro_torch.launch.dryrun import run_cell
-
     torch.set_num_threads(1)
-    rows = [run_cell(arch, shape, multi_pod) for arch, shape, multi_pod in cells]
-    return rows, torch.cuda.is_initialized()
+    kind, args = task
+    t0 = time.perf_counter()
+    if kind == "cell":
+        from repro_torch.launch.dryrun import run_cell
+
+        row = run_cell(*args)
+    else:
+        import torch_hillclimb
+
+        arch, shape, variant = args
+        row = dict(torch_hillclimb.run(arch, shape, **variant), status="ok")
+    return row, time.perf_counter() - t0, torch.cuda.is_initialized()
+
+
+def _h100_plan_line(smi):
+    """The paper's Pix2Pix + YOLOv8 graphs (img 256, base 64) planned on the
+    host over ``h100_submesh_engines()`` (192 + 64 cards, the small engine
+    under the DLA-analogue constraints), analytic costs: its cut points and
+    expected cycle. Planning only: no model runs on that pair."""
+    from repro_torch.core import DLA_ANALOGUE_CONSTRAINTS, h100_submesh_engines, plan
+    from repro_torch.models import Pix2PixConfig, Pix2PixGenerator, YOLOv8, YOLOv8Config
+
+    big, small = h100_submesh_engines(constraints_small=DLA_ANALOGUE_CONSTRAINTS)
+    graphs = [Pix2PixGenerator(Pix2PixConfig(img_size=256, base=64, deconv_mode="cropping")).layer_graph(),
+              YOLOv8(YOLOv8Config(img_size=256)).layer_graph()]
+    ir = plan(graphs, [small, big], cost="analytic", impl="pallas")
+    print(f"plan over h100_submesh_engines() ({small.name} {small.n_chips} cards, {big.name} {big.n_chips}; "
+          f"analytic costs, Pix2Pix + YOLOv8 at img 256): cuts {ir.cuts}, engines "
+          f"{[[ir.engine_names[seg.engine] for seg in segs] for segs in ir.segments]}, expected cycle "
+          f"{ir.expected_cycle * 1e6:.3f} us (predicted, planning only) | {smi}")
+    return {"cuts": ir.cuts, "expected_cycle_s": ir.expected_cycle}
 
 
 def dryrun_phase(smi):
-    """The dry run (the docstring's item 14): ``launch.dryrun.run_cell`` on
-    ``DRYRUN_CELLS`` at full width and depth in a spawned process, its fake
-    256- or 512-rank group apart from this process's groups; every cell
-    ``ok`` and no CUDA context in that process. Returns the rows."""
+    """The dry run (the docstring's item 14): ``DRYRUN_CELLS`` through
+    ``launch.dryrun.run_cell`` and ``HILLCLIMB`` through
+    ``experiments/torch_hillclimb.py``, at full width and depth, each task
+    in one of three spawned processes with its own fake 256- or 512-rank
+    group apart from this process's groups; every cell ``ok`` and no CUDA
+    context in those processes. Then the planning line over the H100
+    engine pair. Returns the rows."""
     import multiprocessing
 
     t0 = time.perf_counter()
-    with concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as ex:
-        rows, touched_card = ex.submit(_dryrun_cells, DRYRUN_CELLS).result(timeout=900)
+    tasks = [("cell", c) for c in DRYRUN_CELLS] + [("hillclimb", HILLCLIMB)]
+    with concurrent.futures.ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn")) as ex:
+        futures = [ex.submit(_dryrun_task, t) for t in tasks]
+        done = [f.result(timeout=900) for f in futures]
     wall = time.perf_counter() - t0
-    for r in rows:
+    rows = []
+    for (kind, args), (r, seconds, touched_card) in zip(tasks, done):
+        if touched_card:
+            raise AssertionError(f"the dry run's process made a CUDA context ({kind} {args})")
         if r["status"] != "ok":
             raise AssertionError(f"dry run {r['arch']} {r['shape']} {r['mesh']}: {r['status']} {r.get('error')}\n"
                                  f"{r.get('trace', '')}")
         counts = {k: v for k, v in r["collective_counts"].items() if k != "bytes_by_kind"}
         gib = {k: v / 2**30 for k, v in r["collective_counts"]["bytes_by_kind"].items() if v}
-        print(f"dry run {r['arch']} {r['shape']} {r['mesh']} (predicted for the H100 SXM's peaks): "
+        what = f"hillclimb {args[2]}" if kind == "hillclimb" else "dry run"
+        print(f"{what} {r['arch']} {r['shape']} {r['mesh']} (predicted for the H100 SXM's peaks): "
               f"compute {r['t_compute_s'] * 1e3:.3f} ms, memory {r['t_memory_s'] * 1e3:.3f} ms, "
               f"collective {r['t_collective_s'] * 1e3:.3f} ms, bottleneck {r['bottleneck']}, per-rank memory "
               f"{r['memory_per_device']['total'] / 2**30:.2f} GiB, collectives {counts} "
-              "(GiB by kind " + ", ".join(f"{k} {v:.3f}" for k, v in gib.items()) + "), "
-              f"build {r['t_lower_s']} s, counted run {r['t_compile_s']} s (host)")
-    if touched_card:
-        raise AssertionError("the dry run's process made a CUDA context")
-    print(f"dry run: {len(rows)} cells ok in {wall:.1f} s on the host, no CUDA context in their process | {smi}")
-    return rows
+              "(GiB by kind " + ", ".join(f"{k} {v:.3f}" for k, v in gib.items()) + f"), host {seconds:.1f} s")
+        rows.append(dict(r, task=kind, host_s=seconds))
+    print(f"dry run: {len(DRYRUN_CELLS)} cells and the hillclimb call ok in {wall:.1f} s on the host (3 processes), "
+          f"no CUDA context in their processes | {smi}")
+    return {"rows": rows, "wall_s": wall, "h100_plan": _h100_plan_line(smi)}
 
 
 def main() -> int:

@@ -1,9 +1,17 @@
 # Engine-aware multi-model scheduling, planning and staged execution: the
-# JAX package's namespace (less the TPU engine pair, which waits for an H100
-# engine pair) plus the device pool and the submesh placers.
+# JAX package's namespace (its TPU engine pair and constants as the H100's)
+# plus the device pool and the submesh placers.
 from .api import plan
 from .graph import LayerGraph, LayerMeta, conv_meta, pointwise_meta
-from .engine import DevicePool, EngineSpec, jetson_orin_engines
+from .engine import (
+    H100_BF16_FLOPS,
+    H100_HBM_BW,
+    H100_LINK_BW,
+    DevicePool,
+    EngineSpec,
+    h100_submesh_engines,
+    jetson_orin_engines,
+)
 from .constraints import (
     DLA_ANALOGUE_CONSTRAINTS,
     TPU_SMALL_CONSTRAINTS,

@@ -5,6 +5,8 @@ the HaX-CoNN scheduler consume only this abstraction. On one CUDA card the
 two engines of a plan run as two CUDA streams (``serve.executor``); the
 engine's constraint set stays a planning constraint. ``DevicePool`` slices
 the host's devices into the engine groups of the serving fleets.
+``h100_submesh_engines`` splits a mesh of H100 cards into a flexible and a
+constrained engine for planning (the JAX package's TPU submesh pair).
 """
 from __future__ import annotations
 
@@ -16,6 +18,12 @@ import torch
 from ..nn.module import tree_map
 
 # ---- hardware constants -------------------------------------------------------
+# NVIDIA H100 SXM published peaks (data sheet; dense, no sparsity), per card
+H100_BF16_FLOPS = 989e12
+H100_HBM_BW = 3.35e12
+# one card's inter-node link: a 400 Gb/s NDR InfiniBand port
+H100_LINK_BW = 50e9
+
 # Jetson AGX Orin engine efficiencies, calibrated so that the cost model
 # lands on the paper's measured standalone throughputs (Table IV context:
 # Pix2Pix G is ~12.1 GFLOP/frame at 256x256; GPU ~172 FPS, balanced DLA
@@ -93,6 +101,38 @@ def jetson_orin_engines(constraints_dla=(), constraints_gpu=()):
         "DLA", 1, JETSON_ORIN_DLA_FLOPS, JETSON_ORIN_DLA_BW, JETSON_XFER_BW, tuple(constraints_dla)
     )
     return gpu, dla
+
+
+def h100_submesh_engines(
+    n_big: int = 192,
+    n_small: int = 64,
+    constraints_small=(),
+    efficiency: float = 0.6,
+):
+    """Split a 256-card mesh (the dry run's 16 x 16 production mesh) into a
+    flexible 'GPU-analogue' engine and a constrained 'DLA-analogue' engine
+    for concurrent multi-model serving: planning only (each engine's rates
+    are its cards' published peaks, its link to the peer one NDR port per
+    card of the smaller engine)."""
+    big = EngineSpec(
+        "H100-BIG",
+        n_big,
+        n_big * H100_BF16_FLOPS,
+        n_big * H100_HBM_BW,
+        H100_LINK_BW * min(n_big, n_small),
+        (),
+        efficiency,
+    )
+    small = EngineSpec(
+        "H100-SMALL",
+        n_small,
+        n_small * H100_BF16_FLOPS,
+        n_small * H100_HBM_BW,
+        H100_LINK_BW * min(n_big, n_small),
+        tuple(constraints_small),
+        efficiency,
+    )
+    return big, small
 
 
 class DevicePool:

@@ -360,6 +360,61 @@ def abstract_put(tree, shardings):
     return tree_map(put, tree, shardings)
 
 
+def split_once(x, dim: int):
+    """``x`` with its dim ``dim`` split over one mesh dim at most, the
+    largest of those that split it (the first of equals); any other value
+    as it is. DTensor's masked lookups (an embedding from a vocab-sharded
+    table, the gather of the gold logit from vocab-sharded logits) give
+    the result one masked partial per mesh dim that splits the vocab, all
+    sharing one mask, and refuse a second mask as conflicting."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    split = [i for i, pl in enumerate(x.placements) if isinstance(pl, Shard) and pl.dim == dim % x.ndim]
+    if len(split) < 2:
+        return x
+    keep = max(split, key=mesh.size)
+    return x.redistribute(mesh, [Replicate() if i in split and i != keep else pl for i, pl in enumerate(x.placements)])
+
+
+class _ReducePartials(torch.autograd.Function):
+    """A DTensor's partial placements reduced to ``Replicate()``. The
+    gradient of a sum over ranks is the whole gradient on every rank: it
+    goes back replicated there (DTensor's own backward of the redistribution
+    would turn it into the masked partial, which it cannot)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+
+        ctx.placements = x.placements
+        return x.redistribute(x.device_mesh, [Replicate() if pl.is_partial() else pl for pl in x.placements])
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+
+        return g.redistribute(g.device_mesh, [Replicate() if pl.is_partial() else gp
+                                              for pl, gp in zip(ctx.placements, g.placements)])
+
+
+def reduce_partials(x):
+    """A DTensor with its partial placements reduced (``Replicate()``
+    there); any other value as it is. An embedding lookup from a
+    vocab-sharded table gives a masked partial sum whose mask every tensor
+    computed from it shares, and DTensor releases the mask at the first
+    reduction: a second use of the lookup (the residual beside the norm,
+    remat's recompute) then has none. Reduced where it is made, it is
+    reduced once."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor) or not any(pl.is_partial() for pl in x.placements):
+        return x
+    return _ReducePartials.apply(x)
+
+
 def to_global(x):
     """A DTensor's whole value as a plain tensor on every rank (a
     collective where it is sharded or partial); any other leaf as it is."""
@@ -368,18 +423,96 @@ def to_global(x):
     return x.full_tensor() if isinstance(x, DTensor) else x
 
 
-@functools.cache
-def _register_strategies():
-    """Sharding strategies for the ops the models run that DTensor lacks:
-    ``searchsorted`` (MoE's sort-based dispatch) on whole, replicated
-    inputs, which is where GSPMD computes it too. Every other op without a
-    strategy raises."""
-    from torch.distributed.tensor import Replicate
+def _register(op, strategy, schema_info=None):
+    """``strategy`` (``register_sharding``'s form) as the one DTensor uses
+    for ``op`` in this torch version: it replaces the version's own,
+    whether that is a whole-mesh strategy or a single-mesh-dim one (which
+    DTensor would try first), and ``schema_info`` names the non-tensor
+    arguments the cached placements depend on (``register_sharding`` keys
+    them on the tensors and int arguments alone)."""
+    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import register_sharding
 
-    @register_sharding(torch.ops.aten.searchsorted.Tensor)
-    def searchsorted(sorted_sequence, values, *args, **kwargs):
-        return [([Replicate()], [Replicate(), Replicate()])]
+    register_sharding(op)(strategy)
+    prop = DTensor._op_dispatcher.sharding_propagator
+    getattr(prop, "op_single_dim_strategy_funcs", {}).pop(op, None)
+    if schema_info is not None:
+        prop.op_to_schema_info[op] = schema_info
+
+
+def _searchsorted_strategy(sorted_sequence, values, *args, **kwargs):
+    """``searchsorted`` (MoE's sort-based dispatch) on whole, replicated
+    inputs, which is where GSPMD computes it too."""
+    from torch.distributed.tensor import Replicate
+
+    return [([Replicate()], [Replicate(), Replicate()])]
+
+
+def _var_mean_strategy(x, *args, keepdim=False, **kwargs):
+    """``var_mean`` (the norms' statistics): the reduced dims whole, any
+    other dim sharded or replicated, the statistics placed as their input
+    (renumbered without ``keepdim``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    ndim = len(x.shape)
+    dims = args[0] if args else kwargs.get("dim")
+    reduced = set(range(ndim)) if dims is None else {d % ndim for d in dims}
+    rest = [None] * len(args)
+    out = [([Replicate(), Replicate()], [Replicate(), *rest])]
+    for d in sorted(set(range(ndim)) - reduced):
+        o = d if keepdim else d - sum(r < d for r in reduced)
+        out.append(([Shard(o), Shard(o)], [Shard(d), *rest]))
+    return out
+
+
+def _constant_pad_nd_strategy(x, pad, *args):
+    """``constant_pad_nd`` (Mamba2's causal conv): the padded dims whole,
+    any other dim sharded or replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    ndim = len(x.shape)
+    padded = {ndim - 1 - i for i in range(len(pad) // 2) if pad[2 * i] or pad[2 * i + 1]}
+    rest = [None] * (1 + len(args))
+    return [([Replicate()], [Replicate(), *rest])] + [
+        ([Shard(d)], [Shard(d), *rest]) for d in range(ndim) if d not in padded
+    ]
+
+
+def _flip_strategy(x, dims):
+    """``flip`` (the backward of the SSD scan's ``cumsum``): the flipped dims
+    whole, any other dim sharded or replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    ndim = len(x.shape)
+    flipped = {d % ndim for d in dims}
+    return [([Replicate()], [Replicate(), None])] + [
+        ([Shard(d)], [Shard(d), None]) for d in range(ndim) if d not in flipped
+    ]
+
+
+@functools.cache
+def _register_strategies():
+    """Sharding strategies for the ops the models run where DTensor has none
+    or a wrong one in some torch version:
+    - ``searchsorted``, ``constant_pad_nd`` and ``flip``, the same in every
+      version (torch 2.11's pad strategy gives one placement whatever the
+      mesh's dims, and its redistribution raises ``IndexError`` on a mesh
+      of two or more; 2.11 has no ``flip`` strategy);
+    - ``var_mean`` where the version has none (2.11). A version's own is
+      kept: 2.13's follows the strided shards of a 3-D mesh, which this one
+      gathers, and with this one whisper-small's ``train_4k`` cell on 2 x
+      16 x 16 ran over 15 minutes on the host instead of about one.
+    Every other op without a strategy raises."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    var_mean = torch.ops.aten.var_mean.correction
+    _register(torch.ops.aten.searchsorted.Tensor, _searchsorted_strategy)
+    if var_mean not in prop.op_strategy_funcs and var_mean not in getattr(prop, "op_single_dim_strategy_funcs", {}):
+        _register(var_mean, _var_mean_strategy, RuntimeSchemaInfo(1, ["keepdim"], needs_pytree=True))
+    _register(torch.ops.aten.constant_pad_nd.default, _constant_pad_nd_strategy, RuntimeSchemaInfo(1))
+    _register(torch.ops.aten.flip.default, _flip_strategy, RuntimeSchemaInfo(1))
 
 
 @contextlib.contextmanager

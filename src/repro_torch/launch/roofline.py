@@ -28,18 +28,15 @@ about 1).
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..core.engine import H100_BF16_FLOPS, H100_HBM_BW, H100_LINK_BW
 from ..nn.module import tree_leaves
-
-# NVIDIA H100 SXM published peaks (data sheet; dense, no sparsity)
-H100_BF16_FLOPS = 989e12
-H100_HBM_BW = 3.35e12
-# one GPU's inter-node link: a 400 Gb/s NDR InfiniBand port
-H100_LINK_BW = 50e9
 
 DTYPE_BYTES = {
     "pred": 1,
@@ -93,6 +90,7 @@ _COLLECTIVE_KIND = {
 }
 _NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
 _C10D_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
+_PROPAGATOR_FILE = os.path.join("distributed", "tensor", "_sharding_prop.py")
 
 
 def tensor_bytes(t: torch.Tensor) -> int:
@@ -107,6 +105,19 @@ def _local(x):
 
 def _tensors(tree) -> list[torch.Tensor]:
     return [t for t in map(_local, tree_leaves(tree)) if isinstance(t, torch.Tensor)]
+
+
+def _in_sharding_propagation() -> bool:
+    """Whether DTensor's sharding propagator is on the Python stack: the
+    ops it runs (a decomposition on placeholder tensors of global shape, the
+    device mesh it makes for them) derive a placement, and no rank runs
+    them."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.endswith(_PROPAGATOR_FILE):
+            return True
+        f = f.f_back
+    return False
 
 
 def _storage_key(t):
@@ -134,7 +145,10 @@ class RankCounter(TorchDispatchMode):
     runs it and its ops on plain tensors come back here. DTensor's sharding
     propagation runs ops of global shape under a ``FakeTensorMode``, which
     sits below every other mode: while one is active an op passes
-    through uncounted. Per local op:
+    through uncounted. Where it derives a strategy from an op's
+    decomposition, it runs the decomposition on ``meta`` tensors of global
+    shape it makes for the purpose: an op called from the sharding
+    propagator passes through uncounted too. Per local op:
     flops by ``torch.utils.flop_counter``'s formulas, the bytes of its
     tensor inputs and outputs (view ops move none), and the bytes of every
     storage it creates, live until the storage is freed, for the peak."""
@@ -178,6 +192,8 @@ class RankCounter(TorchDispatchMode):
             return func(*args, **kwargs)
         if any(t is not torch.Tensor for t in types):
             return NotImplemented
+        if _in_sharding_propagation():
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
         name = func.overloadpacket.__name__

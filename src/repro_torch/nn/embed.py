@@ -4,6 +4,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch.nn.functional as F
+
 from .module import Module, ParamSpec, normal_init
 
 
@@ -17,7 +19,14 @@ class Embedding(Module):
         return {"table": ParamSpec((self.vocab, self.d), ("vocab", "embed"), normal_init(0.02))}
 
     def __call__(self, p, tokens):
-        x = p["table"][tokens]
+        from ..dist.sharding import reduce_partials, split_once
+
+        # aten.embedding, not table[tokens] (aten.index): DTensor places the
+        # lookup for any split of the tokens, the batch over "pod" and "data"
+        # included, and gathers no more of a vocab-sharded table than one
+        # split (its masked partial reduced at once); on plain tensors both
+        # gather the same rows bit for bit
+        x = reduce_partials(F.embedding(tokens, split_once(p["table"], 0)))
         if self.scale_by_sqrt_d:
             x = x * x.new_tensor(math.sqrt(self.d))
         return x

@@ -8,6 +8,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..dist.sharding import split_once
+
 
 def _one_vocab_split(logits):
     """``logits`` with the vocab (last) dim split over one mesh dim at most,
@@ -15,17 +17,7 @@ def _one_vocab_split(logits):
     gather from a vocab-sharded tensor gives the index one masked partial
     per splitting mesh dim, all sharing one mask, and refuses a second mask
     as conflicting (phi4-mini's 200,064 tokens over "model" and "pod")."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    if not isinstance(logits, DTensor):
-        return logits
-    mesh = logits.device_mesh
-    split = [i for i, pl in enumerate(logits.placements) if isinstance(pl, Shard) and pl.dim == logits.ndim - 1]
-    if len(split) < 2:
-        return logits
-    keep = max(split, key=mesh.size)
-    return logits.redistribute(mesh, [Replicate() if i in split and i != keep else pl
-                                      for i, pl in enumerate(logits.placements)])
+    return split_once(logits, -1)
 
 
 def _token_nll(logits, labels):

@@ -16,6 +16,10 @@ coordinator it is given), each collective bounded by a 120 s timeout.
   checkpoint restores to the parameters of the last step both finished.
 - ``launch.train.main`` in two processes (the MoE smoke model) against
   one process's step on the batch assembled from each rank's rows.
+- The embedding lookup from tables split over the vocab or with the batch
+  split over both mesh dims against the plain lookup.
+- ``maybe_initialize_distributed`` refusing ranks whose PYTHONHASHSEEDs
+  differ (two processes started with their own seeds).
 
 The ranks import neither JAX nor the JAX package; the JAX reference runs
 in the test's own process.
@@ -38,6 +42,9 @@ from repro_torch.nn.module import tree_leaves, tree_map  # noqa: E402
 from repro_torch.train import AdamW, make_lm_train_step  # noqa: E402
 
 SPAWN_TIMEOUT_S = 300
+# every spawned rank hashes strings alike: DTensor's ties between equally
+# cheap placements follow the hashing (launch.distributed checks it)
+HASH_SEED = "0"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -50,8 +57,17 @@ def _one_thread():
 
 def _spawn(fn, world, *args):
     """Run ``fn(rank, world, *args)`` in ``world`` spawned processes; a
-    rank's exception is raised here with its traceback."""
-    ctx = mp.start_processes(fn, args=(world, *args), nprocs=world, join=False, start_method="spawn")
+    rank's exception is raised here with its traceback. Every rank starts
+    with ``PYTHONHASHSEED=HASH_SEED``."""
+    seed = os.environ.get("PYTHONHASHSEED")
+    os.environ["PYTHONHASHSEED"] = HASH_SEED
+    try:
+        ctx = mp.start_processes(fn, args=(world, *args), nprocs=world, join=False, start_method="spawn")
+    finally:
+        if seed is None:
+            del os.environ["PYTHONHASHSEED"]
+        else:
+            os.environ["PYTHONHASHSEED"] = seed
     deadline = time.monotonic() + SPAWN_TIMEOUT_S
     while not ctx.join(timeout=5):
         if time.monotonic() > deadline:
@@ -223,6 +239,35 @@ def _launcher_rank(rank, world, port, out):
                 "local": [tuple(t.to_local().shape) for t in tree_leaves(res.params)]}, out.format(rank))
 
 
+def _lookup_rank(rank, world, store, out):
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.dist import mesh_ops
+    from repro_torch.nn.embed import Embedding
+
+    _join(rank, world, store)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        g = torch.Generator().manual_seed(0)
+        table, tokens = torch.randn(64, 8, generator=g), torch.randint(0, 64, (4, 16), generator=g)
+        grad = torch.randn(4, 16, 8, generator=g)
+        got = {}
+        for name, table_pl, token_pl in [("vocab over one dim", (Replicate(), Shard(0)), (Shard(0), Replicate())),
+                                         ("vocab over two dims", (Shard(0), Shard(0)), (Replicate(), Replicate())),
+                                         ("batch over two dims", (Replicate(), Replicate()), (Shard(0), Shard(0)))]:
+            t = distribute_tensor(table, mesh, table_pl).requires_grad_()
+            with mesh_ops():
+                x = Embedding(64, 8)({"table": t}, distribute_tensor(tokens, mesh, token_pl))
+                y = x + x.float().square()  # the rows used twice
+                (y * distribute_tensor(grad, mesh, y.placements)).sum().backward()
+                got[name] = (y.full_tensor(), t.grad.full_tensor())
+        if rank == 0:
+            torch.save(got, out)
+    finally:
+        dist.destroy_process_group()
+
+
 # ------------------------------------------------------------------ the tests
 
 
@@ -372,3 +417,68 @@ def test_two_process_launcher_equals_one_process_on_the_assembled_batch(tmp_path
     np.testing.assert_allclose(ranks[0]["aux"], aux, rtol=1e-5, atol=0)
     shapes = [tuple(t.shape) for t in tree_leaves(params)]
     assert any(loc != full for loc, full in zip(ranks[0]["local"], shapes))
+
+
+_JOIN_TWO = """
+import sys
+import torch.distributed as dist
+from repro_torch.launch.distributed import maybe_initialize_distributed
+try:
+    maybe_initialize_distributed(sys.argv[1], 2, int(sys.argv[2]), device="cpu")
+except RuntimeError as e:
+    assert not dist.is_initialized()
+    print("RAISED", e)
+else:
+    dist.barrier()
+    dist.destroy_process_group()
+    print("JOINED")
+"""
+
+
+@pytest.mark.parametrize("seeds,result", [(("1", "2"), "RAISED"), (("3", "3"), "JOINED")])
+def test_ranks_with_different_hash_seeds_raise(seeds, result):
+    """``maybe_initialize_distributed`` on two gloo ranks: where their
+    PYTHONHASHSEEDs differ both raise, leave no process group, and say to
+    export one seed for every rank; with one seed both join."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parent.parent / "src")
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, "-c", _JOIN_TWO, f"127.0.0.1:{port}", str(rank)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=dict(os.environ, PYTHONPATH=src, PYTHONHASHSEED=seed, OMP_NUM_THREADS="1"))
+             for rank, seed in enumerate(seeds)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+        assert out.startswith(result), (out, err[-2000:])
+        if result == "RAISED":
+            assert "export one PYTHONHASHSEED" in out
+
+
+def test_lookup_from_sharded_tables_equals_the_plain_lookup(tmp_path):
+    """The embedding lookup on a (2, 2) mesh of gloo ranks: the vocab split
+    over one mesh dim or over both with the tokens whole there (DTensor
+    refused the second mask), and the tokens split over both dims, each
+    with the rows used twice: the rows and the table's gradient equal the
+    plain lookup's."""
+    out = tmp_path / "rank0.pt"
+    _spawn(_lookup_rank, 4, str(tmp_path / "store"), str(out))
+    g = torch.Generator().manual_seed(0)
+    table, tokens = torch.randn(64, 8, generator=g), torch.randint(0, 64, (4, 16), generator=g)
+    grad = torch.randn(4, 16, 8, generator=g)
+    t = table.clone().requires_grad_()
+    x = t[tokens]
+    y = x + x.square()
+    (y * grad).sum().backward()
+    got = torch.load(out)
+    assert len(got) == 3
+    for name, (rows, table_grad) in got.items():
+        torch.testing.assert_close(rows, y.detach(), rtol=0, atol=0, msg=name)
+        torch.testing.assert_close(table_grad, t.grad, rtol=1e-6, atol=1e-6, msg=name)

@@ -259,6 +259,22 @@ def test_matmul_flops_are_per_rank(fake_mesh):
     assert counts.memory["arguments"] == (M // 4 * K + K * N) * 4 and counts.memory["outputs"] == M // 4 * N * 4
 
 
+def test_counts_do_not_include_the_sharding_propagation(fake_mesh, small_shapes):
+    """A cell counts what its rank runs, whether DTensor's placements are
+    cached or not: with the cache cleared, DTensor derives some ops'
+    strategies by running their decompositions on ``meta`` tensors of
+    global shape (mamba2's softplus among them), which a rank never runs."""
+    prop = DTensor._op_dispatcher.sharding_propagator
+    spec = _smoke("mamba2_2_7b")
+    mesh = fake_mesh((2, 2), ("data", "model"))
+    counts = []
+    for _ in range(2):
+        prop.propagate_op_sharding.cache_clear()
+        counts.append(_run_cell(spec, "train", mesh)[2])
+    counts.append(_run_cell(spec, "train", mesh)[2])  # every placement cached
+    assert counts[0] == counts[1] == counts[2]
+
+
 # ------------------------------------------------------------ (h) the launcher
 
 
@@ -292,3 +308,48 @@ def test_launcher_skips_and_fails_as_jax(monkeypatch, tmp_path):
     assert e.value.code == 1 and not dist.is_initialized()
     row = json.loads((tmp_path / "gemma2_2b__decode_32k__2x16x16.json").read_text())
     assert row["status"] == "fail" and "no strategy" in row["error"]
+
+
+# ------------------------------------------------------- (i) the hillclimb script
+
+
+def _hillclimb():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "experiments" / "torch_hillclimb.py"
+    spec = importlib.util.spec_from_file_location("torch_hillclimb", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_hillclimb_equals_run_cell(monkeypatch, capsys):
+    """``experiments/torch_hillclimb.py`` takes ``run_cell``'s path: on
+    mamba2-2.7b's smoke config over a fake 2 x 2 mesh (in place of the 16 x
+    16 one), its row with no variant has ``run_cell``'s terms, counts and
+    memory; a variant (``n_micro=2``) and a config override reach the
+    cell; each call prints the JAX script's line; no CUDA context."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    hc = _hillclimb()
+    spec = _smoke("mamba2_2_7b")
+    mesh = lambda **kw: init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))  # noqa: E731
+    real_dry_run = dryrun.dry_run
+    for mod in (hc, dryrun):
+        monkeypatch.setattr(mod, "get_arch", lambda name: spec)
+        monkeypatch.setattr(mod, "make_production_mesh", mesh)
+        monkeypatch.setattr(mod, "dry_run", lambda world: real_dry_run(4))
+    monkeypatch.setitem(configs.SHAPES, "train_4k", SHAPES["train"])
+    row = hc.run("mamba2_2_7b", "train_4k")
+    want = dryrun.run_cell("mamba2_2_7b", "train_4k", False, verbose=False)
+    assert want["status"] == "ok"
+    assert row == {k: want[k] for k in row}
+    micro = hc.run("mamba2_2_7b", "train_4k", set_cfg={"remat": False}, n_micro=2)
+    assert micro["collective_counts"] != row["collective_counts"]
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("[mamba2_2_7b|train_4k|{}] comp=") and "bneck=collective" in out[0]
+    assert out[-1].startswith("[mamba2_2_7b|train_4k|{'n_micro': 2}] comp=") and "mem/dev=" in out[-1]
+    assert not dist.is_initialized() and not torch.cuda.is_initialized()
+    assert hc.parse_kw(["n_micro=2", "fsdp=False", "lr=0.5", "remat_policy=dots"]) == {
+        "n_micro": 2, "fsdp": False, "lr": 0.5, "remat_policy": "dots"}

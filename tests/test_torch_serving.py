@@ -203,14 +203,16 @@ NEW_MODULES = [
 
 def test_port_imports_neither_jax_nor_repro():
     """Every module of the package, the card scripts at the root
-    (``chip_smoke.py``, ``served_trace.py``) and the torch examples
-    (``examples/torch_*.py``) import neither ``jax`` nor ``repro``: once
-    imported, and in every import statement of the scripts (their work
-    imports lazily, behind ``__main__``)."""
+    (``chip_smoke.py``, ``served_trace.py``), the torch examples
+    (``examples/torch_*.py``) and the hillclimb script
+    (``experiments/torch_hillclimb.py``) import neither ``jax`` nor
+    ``repro``: once imported, and in every import statement of the scripts
+    (their work imports lazily, behind ``__main__``)."""
     import ast
 
     scripts = [SRC.parent / "chip_smoke.py", SRC.parent / "served_trace.py"]
     scripts += sorted((SRC.parent / "examples").glob("torch_*.py"))
+    scripts += sorted((SRC.parent / "experiments").glob("torch_*.py"))
     names = set()
     for script in scripts:
         for node in ast.walk(ast.parse(script.read_text())):
