@@ -160,7 +160,14 @@ toolkit, this
    none of them makes a CUDA context): each cell's step on ``meta``
    DTensors counted per rank, its three roofline terms predicted for the
    H100 SXM's peaks, bottleneck, per-rank memory and collective counts
-   printed; any cell that is not ``ok`` fails the run; then the paper's
+   printed; any cell that is not ``ok`` fails the run; beside them, in
+   the same processes, ``SMOKE_2X2_CELLS`` (the batch-8 decodes and train
+   cells at smoke widths on a fake 2 x 2 group, where the batch and the
+   heads split over different mesh dims, each checked as the tests check
+   a cell: ``launch.dryrun.check_cell``) and the two-rank launches of
+   ``LAUNCHES`` (``launch.train.main`` in two gloo ranks against one
+   process's steps, ``launch.train.reference_steps``, within
+   ``LAUNCH_RTOL``, the replicated parameters equal on both ranks); then the paper's
    Pix2Pix + YOLOv8 graphs planned once on the host over
    ``h100_submesh_engines()`` (cut points, expected cycle).
 
@@ -183,6 +190,7 @@ import dataclasses
 import inspect
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -2831,18 +2839,123 @@ def dist_phase(torch, smi, dev):
 # "data"; on torch 2.11 they need the embedding lookup as aten.embedding and
 # the strategies dist.mesh_ops registers for Mamba2's causal pad and
 # LayerNorm's var_mean)
+# mamba2-2.7b's batch-128 decode on both meshes: its SSD decode step runs with
+# the batch over "data" (and "pod") and the heads over "model"
 DRYRUN_CELLS = (("gemma2_2b", "train_4k", False), ("gemma2_2b", "decode_32k", False),
                 ("mamba2_2_7b", "long_500k", False), ("mamba2_2_7b", "prefill_32k", True),
-                ("whisper_small", "prefill_32k", True))
+                ("whisper_small", "prefill_32k", True), ("mamba2_2_7b", "decode_32k", False),
+                ("mamba2_2_7b", "decode_32k", True))
 # experiments/torch_hillclimb.py's own example: (arch, shape, variant)
 HILLCLIMB = ("mamba2_2_7b", "train_4k", {"n_micro": 2})
+# smoke-width cells on a fake 2 x 2 ("data", "model") group, where every mesh
+# dim splits the batch or the heads (tests/test_torch_dryrun.py's cells; on
+# torch 2.11 these raised in DTensor's view of an einsum's batch and head dims,
+# and the M-RoPE train cell in its in-place index_put): (family's arch, kind)
+SMOKE_2X2_CELLS = tuple((a, "decode") for a in ("gemma2_2b", "deepseek_moe_16b", "qwen2_vl_7b", "mamba2_2_7b",
+                                                 "hymba_1_5b", "whisper_small")) + tuple(
+    (a, "train") for a in ("gemma2_2b", "deepseek_moe_16b", "deepseek_v2_lite_16b", "qwen2_vl_7b", "hymba_1_5b",
+                           "whisper_small"))
+# two-rank launches on the host, (arch, micro-batches): MoE's dispatch over
+# both ranks' tokens; Mamba2, whose scan argument A has no batch dim
+LAUNCHES = (("deepseek_moe_16b", 2), ("mamba2_2_7b", 1))
+LAUNCH_RTOL = 1e-5  # tests/test_torch_dist_ranks.py's bound on the two ranks' losses
+
+
+def _smoke_2x2_cells():
+    """``SMOKE_2X2_CELLS`` built, run and checked by
+    ``launch.dryrun.check_cell`` (two micro-batches, its smoke-width
+    shapes) on a fake 2 x 2 group. Returns a row per cell."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun
+
+    rows = []
+    for arch, kind in SMOKE_2X2_CELLS:
+        t0 = time.perf_counter()
+        with dryrun.dry_run(4):
+            counts = dryrun.check_cell(init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model")), arch, kind)
+        rows.append({"arch": arch, "kind": kind, "flops": counts.flops,
+                     "collectives": sum(counts.collective_counts.values()), "host_s": time.perf_counter() - t0})
+    return rows
+
+
+def _two_rank_launch_rank(rank, world, port, arch, n_micro, queue):
+    """One rank of a two-process launch (``launch.train.main``): its
+    metrics, its replicated parameters and whether it made a CUDA
+    context."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.nn.module import tree_leaves
+
+    torch.set_num_threads(1)
+    res = launch_train.main(["--arch", arch, "--smoke", "--steps", "2", "--batch", "4", "--seq", "16",
+                             "--n-micro", str(n_micro), "--device", "cpu", "--log-every", "1", "--coordinator",
+                             f"127.0.0.1:{port}", "--num-processes", str(world), "--process-id", str(rank)])
+    replicas = [t.to_local().numpy() for t in tree_leaves(res.params) if not any(p.is_shard() for p in t.placements)]
+    queue.put((rank, {k: [h[k] for h in res.history] for k in ("loss", "aux", "grad_norm")}, replicas,
+               torch.cuda.is_initialized()))
+
+
+def _two_rank_launch(arch, n_micro):
+    """``arch``'s smoke config trained two steps by ``launch.train.main`` in
+    two gloo ranks on the host, against one process's steps on the batches
+    assembled from each rank's rows (``launch.train.reference_steps``):
+    losses, load-balance terms and gradient norms within ``LAUNCH_RTOL``,
+    and the replicated parameters equal on both ranks. Returns the row."""
+    import multiprocessing
+    import socket
+
+    import numpy as np
+
+    from repro_torch.launch.train import reference_steps
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    seed = os.environ.get("PYTHONHASHSEED")
+    os.environ["PYTHONHASHSEED"] = "0"  # DTensor's ties follow each process's string hashing
+    try:
+        ranks = [ctx.Process(target=_two_rank_launch_rank, args=(r, 2, port, arch, n_micro, queue)) for r in range(2)]
+        for p in ranks:
+            p.start()
+    finally:
+        if seed is None:
+            del os.environ["PYTHONHASHSEED"]
+        else:
+            os.environ["PYTHONHASHSEED"] = seed
+    try:
+        got = dict((r, rest) for r, *rest in (queue.get(timeout=600) for _ in ranks))
+    finally:
+        for p in ranks:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    if any(p.exitcode for p in ranks) or any(g[2] for g in got.values()):
+        raise AssertionError(f"{arch} launch ranks: exit codes {[p.exitcode for p in ranks]}, "
+                             f"CUDA context {[g[2] for g in got.values()]}")
+    history, _ = reference_steps(arch, 2, 4, 16, n_micro=n_micro, world=2)
+    want = {k: [h[k] for h in history] for k in got[0][0]}
+    rel = max(abs(a - b) / abs(b) for k in want for a, b in zip(got[0][0][k], want[k]) if b)
+    apart = sum(not np.array_equal(a, b) for a, b in zip(got[0][1], got[1][1]))
+    if got[0][0] != got[1][0] or rel > LAUNCH_RTOL or apart:
+        raise AssertionError(f"{arch} launch: ranks' metrics {got[0][0]} {got[1][0]} against one process's {want}: "
+                             f"max relative {rel:.3e} (bound {LAUNCH_RTOL}); {apart} replicated parameters apart")
+    return {"arch": arch, "n_micro": n_micro, "metrics": got[0][0], "one_process": want, "max_rel": rel,
+            "replicas": len(got[0][1])}
 
 
 def _dryrun_task(task):
     """One dry-run task in a process of its own (spawned): a cell's row
-    (``("cell", (arch, shape, multi_pod))``) or the hillclimb script's
-    (``("hillclimb", (arch, shape, variant))``), its host seconds, and
-    whether the process has made a CUDA context (it must not)."""
+    (``("cell", (arch, shape, multi_pod))``), the hillclimb script's
+    (``("hillclimb", (arch, shape, variant))``), the smoke-width 2 x 2
+    cells' (``("2x2", None)``) or a two-rank launch's (``("launch", (arch,
+    micro-batches))``),
+    its host seconds, and whether the process has made a CUDA context (it
+    must not)."""
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "experiments"))
     import torch
@@ -2854,11 +2967,15 @@ def _dryrun_task(task):
         from repro_torch.launch.dryrun import run_cell
 
         row = run_cell(*args)
-    else:
+    elif kind == "hillclimb":
         import torch_hillclimb
 
         arch, shape, variant = args
         row = dict(torch_hillclimb.run(arch, shape, **variant), status="ok")
+    elif kind == "2x2":
+        row = {"cells": _smoke_2x2_cells(), "status": "ok"}
+    else:
+        row = dict(_two_rank_launch(*args), status="ok")
     return row, time.perf_counter() - t0, torch.cuda.is_initialized()
 
 
@@ -2884,16 +3001,20 @@ def _h100_plan_line(smi):
 def dryrun_phase(smi):
     """The dry run (the docstring's item 14): ``DRYRUN_CELLS`` through
     ``launch.dryrun.run_cell`` and ``HILLCLIMB`` through
-    ``experiments/torch_hillclimb.py``, at full width and depth, each task
-    in one of three spawned processes with its own fake 256- or 512-rank
-    group apart from this process's groups; every cell ``ok`` and no CUDA
-    context in those processes. Then the planning line over the H100
+    ``experiments/torch_hillclimb.py``, at full width and depth, the
+    smoke-width 2 x 2 cells and the two-rank MoE launch, each task in one
+    of four spawned processes with its own fake process group (or its own
+    gloo ranks) apart from this process's groups; every cell ``ok`` and no
+    CUDA context in those processes. Then the planning line over the H100
     engine pair. Returns the rows."""
     import multiprocessing
 
     t0 = time.perf_counter()
-    tasks = [("cell", c) for c in DRYRUN_CELLS] + [("hillclimb", HILLCLIMB)]
-    with concurrent.futures.ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn")) as ex:
+    # the longest first (gemma2-2b's train_4k cell, the hillclimb call, the
+    # 2 x 2 cells, the launches), so that the short cells fill in at the end
+    tasks = ([("cell", DRYRUN_CELLS[0]), ("hillclimb", HILLCLIMB), ("2x2", None)] + [("launch", a) for a in LAUNCHES]
+             + [("cell", c) for c in DRYRUN_CELLS[1:]])
+    with concurrent.futures.ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn")) as ex:
         futures = [ex.submit(_dryrun_task, t) for t in tasks]
         done = [f.result(timeout=900) for f in futures]
     wall = time.perf_counter() - t0
@@ -2901,6 +3022,19 @@ def dryrun_phase(smi):
     for (kind, args), (r, seconds, touched_card) in zip(tasks, done):
         if touched_card:
             raise AssertionError(f"the dry run's process made a CUDA context ({kind} {args})")
+        if kind == "2x2":
+            print(f"dry run, smoke widths on a fake 2 x 2 (data, model) group: {len(r['cells'])} cells ok ("
+                  + ", ".join(f"{c['arch']} {c['kind']} {c['collectives']} collectives {c['host_s']:.1f} s"
+                              for c in r["cells"]) + f"), host {seconds:.1f} s")
+            rows.append(dict(r, task=kind, host_s=seconds))
+            continue
+        if kind == "launch":
+            print(f"two-rank launch ({r['arch']} smoke, 2 gloo ranks, {r['n_micro']} micro-batches): "
+                  f"{r['metrics']} against one process's {r['one_process']}: max relative {r['max_rel']:.3e} "
+                  f"(bound {LAUNCH_RTOL}); {r['replicas']} replicated parameters equal on both ranks, "
+                  f"host {seconds:.1f} s")
+            rows.append(dict(r, task=kind, host_s=seconds))
+            continue
         if r["status"] != "ok":
             raise AssertionError(f"dry run {r['arch']} {r['shape']} {r['mesh']}: {r['status']} {r.get('error')}\n"
                                  f"{r.get('trace', '')}")
@@ -2913,8 +3047,9 @@ def dryrun_phase(smi):
               f"{r['memory_per_device']['total'] / 2**30:.2f} GiB, collectives {counts} "
               "(GiB by kind " + ", ".join(f"{k} {v:.3f}" for k, v in gib.items()) + f"), host {seconds:.1f} s")
         rows.append(dict(r, task=kind, host_s=seconds))
-    print(f"dry run: {len(DRYRUN_CELLS)} cells and the hillclimb call ok in {wall:.1f} s on the host (3 processes), "
-          f"no CUDA context in their processes | {smi}")
+    print(f"dry run: {len(DRYRUN_CELLS)} cells, the hillclimb call, {len(SMOKE_2X2_CELLS)} smoke-width 2 x 2 cells and "
+          f"{len(LAUNCHES)} two-rank launches ok in {wall:.1f} s on the host (4 processes), no CUDA context in their "
+          f"processes | {smi}")
     return {"rows": rows, "wall_s": wall, "h100_plan": _h100_plan_line(smi)}
 
 

@@ -7,6 +7,7 @@ from .sharding import (
     TrainShardings,
     abstract_put,
     batch_sharding,
+    blockwise,
     cache_shardings,
     constrain,
     default_rules,

@@ -21,7 +21,10 @@ tensors without a copy (the dry-run's ``ShapeDtypeStruct``s passed with
 ``in_shardings``), ``on_mesh`` runs a step over DTensors (``jax.jit`` with
 ``in_shardings``) and ``constrain`` is the models' activation constraint
 (``jax.lax.with_sharding_constraint``). ``cache_shardings`` places the
-decode caches; the JAX package has no counterpart to hold it against.
+decode caches, and ``blockwise`` runs an op whose batch-like dims are
+independent on each rank's block of them (the attention core, the SSD scan
+and its decode step); the JAX package has no counterpart to hold either
+against (GSPMD partitions those ops itself).
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from typing import Any
 
 import torch
 
-from ..nn.module import axes_map, tree_def, tree_map
+from ..nn.module import RowMajorGrad, axes_map, tree_def, tree_map
 
 # logical param axes that carry the bulk of the bytes: shard these over
 # tensor-parallel + data (fsdp) mesh axes when model sharding is on
@@ -423,6 +426,61 @@ def to_global(x):
     return x.full_tensor() if isinstance(x, DTensor) else x
 
 
+def blockwise(fn, labels: str, free: str, *args):
+    """``fn(*args)`` where the dims labelled in ``free`` are independent:
+    over DTensors, each rank runs ``fn`` on its own block of them, with
+    every other dim whole (``local_map``). ``labels`` names each dim of
+    each tensor as einsum does (``"bqhgd,bkhd->bqhgd"``; a comma between
+    several outputs); every output carries every free label.
+
+    Each mesh dim keeps split the first free label an argument splits over
+    it, where the blocks stay even; the arguments are redistributed to
+    those placements (a size-1 broadcast dim, and a plain tensor's blocks,
+    taken whole), and the outputs come back as DTensors with the same
+    placements. An argument's gradient is partial over a mesh dim whose
+    kept label it does not carry whole: each rank's block adds its part
+    (``A`` of the SSD scan when the batch is split, MLA's shared RoPE key
+    when the heads are). Where no argument splits a free label, and on
+    plain tensors, ``fn`` runs on its arguments as they are. DTensor lowers
+    an einsum to ``bmm`` by viewing its batch-like dims into one, and some
+    torch versions (2.11) refuse that view where a dim other than the first
+    of them is split; ``fn``'s own arithmetic on each block is that of the
+    plain op."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)), None)
+    if mesh is None:
+        return fn(*args)
+    ins, outs = (side.split(",") for side in labels.split("->"))
+    sizes: dict[str, int] = {}
+    for a, lab in zip(args, ins):
+        for name, n in zip(lab, a.shape):
+            sizes[name] = max(sizes.get(name, 1), n)
+    keep, blocks = [], {}
+    for m in range(mesh.ndim):
+        split = [lab[a.placements[m].dim] for a, lab in zip(args, ins)
+                 if isinstance(a, DTensor) and a.placements[m].is_shard()]
+        name = next((s for s in split if s in free), None)
+        if name is not None and sizes[name] % (blocks.get(name, 1) * mesh.size(m)):
+            name = None
+        if name is not None:
+            blocks[name] = blocks.get(name, 1) * mesh.size(m)
+        keep.append(name)
+    if not blocks:
+        return fn(*args)
+
+    args = [a if isinstance(a, DTensor) else DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            for a in args]
+    in_pl = [tuple(Shard(lab.index(k)) if k and k in lab and a.shape[lab.index(k)] == sizes[k] else Replicate()
+                   for k in keep) for a, lab in zip(args, ins)]
+    grad_pl = [tuple(Partial() if k and not p.is_shard() else p for k, p in zip(keep, pl)) for pl in in_pl]
+    out_pl = [[Shard(lab.index(k)) if k else Replicate() for k in keep] for lab in outs]
+    return local_map(lambda *t: fn(*(RowMajorGrad.apply(x) for x in t)),
+                     out_placements=tuple(out_pl) if len(outs) > 1 else out_pl[0], in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl), device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
 def _register(op, strategy, schema_info=None):
     """``strategy`` (``register_sharding``'s form) as the one DTensor uses
     for ``op`` in this torch version: it replaces the version's own,
@@ -465,6 +523,19 @@ def _var_mean_strategy(x, *args, keepdim=False, **kwargs):
     return out
 
 
+def _index_add_strategy(x, dim, index, source, *args, **kwargs):
+    """``index_add`` (MoE's combine): the index whole; ``self`` and
+    ``source`` replicated, split alike on a dim other than ``dim``, or both
+    partial sums (the op is linear in them)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    dim %= len(x.shape)
+    rest = [None] * len(args)
+    out = [([Replicate()], [Replicate(), None, Replicate(), Replicate(), *rest]),
+           ([Partial()], [Partial(), None, Replicate(), Partial(), *rest])]
+    return out + [([Shard(d)], [Shard(d), None, Replicate(), Shard(d), *rest]) for d in range(len(x.shape)) if d != dim]
+
+
 def _constant_pad_nd_strategy(x, pad, *args):
     """``constant_pad_nd`` (Mamba2's causal conv): the padded dims whole,
     any other dim sharded or replicated."""
@@ -490,18 +561,72 @@ def _flip_strategy(x, dims):
     ]
 
 
+def _index_put_strategy(op_schema):
+    """``index_put`` and ``index_put_`` (MoE's dispatch, a VLM's patch
+    embeddings written into the sequence): the indices whole; ``self`` and
+    ``values`` split alike on the dims after the indexed ones (``values``'
+    trailing dims, where they are not broadcast), whole elsewhere. One
+    strategy follows ``self``'s placements, one ``values``'; ``self``'s
+    first, which an in-place write keeps."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import generate_redistribute_costs
+
+    dst, indices, values = op_schema.args_schema[:3]
+    mesh = dst.mesh
+    d_spec, v_spec = dst.strategies[0].output_spec, values.strategies[0].output_spec
+    d_shape, v_shape = d_spec.tensor_meta.shape, v_spec.tensor_meta.shape
+    offset = len(d_shape) - len(v_shape)  # self's dim d is values' dim d - offset
+    first = len(indices.children)  # self's dims from here on are not indexed
+
+    def trailing(d):
+        return d >= max(first, offset) and d_shape[d] == v_shape[d - offset]
+
+    def spec(strategy, placements):
+        return DTensorSpec(mesh, tuple(placements), tensor_meta=strategy.strategies[0].output_spec.tensor_meta)
+
+    whole = [Replicate()] * mesh.ndim
+    idx_specs = [spec(c, whole) for c in indices.children]
+    out = OpStrategy([])
+    for exemplar, shift in ((d_spec, 0), (v_spec, offset)):
+        d_pl = [Shard(p.dim + shift) if p.is_shard() and trailing(p.dim + shift) else Replicate()
+                for p in exemplar.placements]
+        v_pl = [Shard(p.dim - offset) if p.is_shard() else p for p in d_pl]
+        d_new, v_new = spec(dst, d_pl), spec(values, v_pl)
+        out.strategies.append(OpSpec(
+            output_specs=d_new, input_specs=(d_new, *idx_specs, v_new),
+            redistribute_cost=[generate_redistribute_costs(dst, d_new),
+                               *[generate_redistribute_costs(c, s) for c, s in zip(indices.children, idx_specs)],
+                               generate_redistribute_costs(values, v_new)]))
+    return out
+
+
+def _has_strategy(prop, op):
+    return op in prop.op_strategy_funcs or op in getattr(prop, "op_single_dim_strategy_funcs", {})
+
+
 @functools.cache
 def _register_strategies():
     """Sharding strategies for the ops the models run where DTensor has none
     or a wrong one in some torch version:
-    - ``searchsorted``, ``constant_pad_nd`` and ``flip``, the same in every
-      version (torch 2.11's pad strategy gives one placement whatever the
-      mesh's dims, and its redistribution raises ``IndexError`` on a mesh
-      of two or more; 2.11 has no ``flip`` strategy);
+    - ``searchsorted``, ``constant_pad_nd``, ``flip`` and ``index_add``,
+      the same in every version (torch 2.11's pad strategy gives one
+      placement whatever the mesh's dims, and its redistribution raises
+      ``IndexError`` on a mesh of two or more; 2.11 has no ``flip``
+      strategy; neither version has one for ``index_add``, and the one
+      2.11 derives from its decomposition keeps ``source`` split on the
+      indexed dim while the index is whole);
     - ``var_mean`` where the version has none (2.11). A version's own is
       kept: 2.13's follows the strided shards of a 3-D mesh, which this one
       gathers, and with this one whisper-small's ``train_4k`` cell on 2 x
-      16 x 16 ran over 15 minutes on the host instead of about one.
+      16 x 16 ran over 15 minutes on the host instead of about one;
+    - ``index_put`` and ``index_put_`` where the version has no
+      single-dim strategy (2.13's kept): 2.11 has none for ``index_put_``,
+      and its ``index_put`` strategy takes ``values``' leading dims for
+      the indexed ones, so it splits ``self`` on an indexed dim where
+      ``values`` is split there (the gradient of MoE's gather
+      ``x_pad[slot_tok]`` with the experts over "model").
     Every other op without a strategy raises."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
@@ -509,9 +634,13 @@ def _register_strategies():
     prop = DTensor._op_dispatcher.sharding_propagator
     var_mean = torch.ops.aten.var_mean.correction
     _register(torch.ops.aten.searchsorted.Tensor, _searchsorted_strategy)
-    if var_mean not in prop.op_strategy_funcs and var_mean not in getattr(prop, "op_single_dim_strategy_funcs", {}):
+    if not _has_strategy(prop, var_mean):
         _register(var_mean, _var_mean_strategy, RuntimeSchemaInfo(1, ["keepdim"], needs_pytree=True))
+    for op in (torch.ops.aten.index_put.default, torch.ops.aten.index_put_.default):
+        if op not in getattr(prop, "op_single_dim_strategy_funcs", {}):
+            prop.register_op_strategy(op, _index_put_strategy, RuntimeSchemaInfo(needs_pytree=True))
     _register(torch.ops.aten.constant_pad_nd.default, _constant_pad_nd_strategy, RuntimeSchemaInfo(1))
+    _register(torch.ops.aten.index_add.default, _index_add_strategy)
     _register(torch.ops.aten.flip.default, _flip_strategy, RuntimeSchemaInfo(1))
 
 

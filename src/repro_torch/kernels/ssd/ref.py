@@ -47,8 +47,9 @@ def ssd_chunked(x, dt, A, B, C, chunk: int = 128, return_state: bool = False):
 
     xc = x.reshape(b, nc, chunk, h, p)
     dtc = dt.reshape(b, nc, chunk, h)
-    Bh = B.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)  # (b, nc, l, h, n)
-    Ch = C.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    # (b, nc, l, h, n); B and C given per head are not copied again
+    Bh, Ch = (M.reshape(b, nc, chunk, g, n) for M in (B, C))
+    Bh, Ch = (M.repeat_interleave(rep, dim=3) if rep > 1 else M.contiguous() for M in (Bh, Ch))
 
     dA = torch.movedim(dtc * A, -1, 2)  # (b, nc, h, l) negative
     dA_cum = torch.cumsum(dA, dim=-1)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -68,6 +69,54 @@ def dry_run(world: int):
         dist.destroy_process_group()
         if lib is not None:
             lib._destroy()
+
+
+# small cells of each kind at smoke widths; "long" is the batch-1 decode
+# (sequence-sharded caches)
+SMOKE_SHAPES = {
+    "train": {"kind": "train", "seq_len": 32, "global_batch": 8},
+    "prefill": {"kind": "prefill", "seq_len": 32, "global_batch": 4},
+    "decode": {"kind": "decode", "seq_len": 32, "global_batch": 8},
+    "long": {"kind": "decode", "seq_len": 64, "global_batch": 1},
+}
+
+
+def check_cell(mesh, arch_name: str, shape_name: str, shapes: dict = SMOKE_SHAPES):
+    """Build and run one cell of ``arch_name``'s smoke config on ``mesh``
+    (two micro-batches) and check it: its outputs have the global shapes of
+    the same step on plain meta tensors, the counts are positive, and a
+    train cell (FSDP weights, batch-sharded activations) counts
+    collectives. Raises ``AssertionError`` naming what failed; returns the
+    counts."""
+    from torch.distributed.tensor import DTensor
+
+    from ..nn.module import tree_leaves, tree_map
+
+    def plain(x):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta") if isinstance(x, DTensor) else x
+
+    def leaf_shapes(tree):
+        return [(tuple(t.shape), t.dtype) for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+    spec = get_arch(arch_name)
+    spec = dataclasses.replace(spec, config=spec.smoke)
+    cell = build_cell(spec, shape_name, mesh, n_micro=2, shapes=shapes)
+    out, counts = count_run(cell.fn, cell.args)
+    kind = shapes[shape_name]["kind"]
+    same = leaf_shapes(tree_map(plain, out)) == leaf_shapes(cell.fn(*tree_map(plain, cell.args)))
+    coll = counts.collective_bytes
+    checks = {
+        "kind and ranks": cell.kind == kind and cell.n_chips == mesh.size(),
+        "global shapes": same,
+        "positive counts": counts.flops > 0 and counts.bytes_accessed > 0,
+        "memory": counts.memory["arguments"] > 0 and counts.memory["total"] >= counts.memory["arguments"],
+        "collectives": kind != "train" or (sum(counts.collective_counts.values()) > 0
+                                           and (coll["all-gather"] > 0 or coll["all-reduce"] > 0)),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"cell {arch_name} {shape_name} on {tuple(mesh.shape)}: {', '.join(failed)} wrong")
+    return counts
 
 
 def run_cell(arch_name: str, shape_name: str, multi_pod: bool, verbose: bool = True) -> dict:

@@ -52,9 +52,9 @@ class Cell:
     flops_scale: float = 1.0  # the JAX cell's: cost_analysis counts scan bodies once
 
 
-def model_flops_estimate(spec: ArchSpec, shape_name: str) -> float:
+def model_flops_estimate(spec: ArchSpec, shape_name: str, shapes: dict | None = None) -> float:
     cfg = spec.config
-    sh = SHAPES[shape_name]
+    sh = (SHAPES if shapes is None else shapes)[shape_name]
     n_active = cfg.n_active_params()
     if sh["kind"] == "train":
         tokens = sh["seq_len"] * sh["global_batch"]
@@ -89,9 +89,10 @@ def build_cell(
     fsdp: bool | None = None,  # None -> the arch's TRAIN_FSDP default
     n_micro: int | None = None,
     bf16_params: bool = False,  # bf16 params + fp32 master in opt state
+    shapes: dict | None = None,  # shape_name's table; configs.SHAPES by default
 ) -> Cell:
     cfg = spec.config
-    sh = SHAPES[shape_name]
+    sh = (SHAPES if shapes is None else shapes)[shape_name]
     kind = sh["kind"]
     B, S = sh["global_batch"], sh["seq_len"]
     # FSDP weight sharding only where optimizer state exists: serve cells
@@ -121,7 +122,7 @@ def build_cell(
     bsh = batch_sharding(mesh, B, rules)
     seq_sharded = B == 1
 
-    mf = model_flops_estimate(spec, shape_name)
+    mf = model_flops_estimate(spec, shape_name, shapes)
 
     if kind == "train":
         opt = AdamW(lr=warmup_cosine(3e-4, 100, 10000), weight_decay=0.01, master_weights=bf16_params)

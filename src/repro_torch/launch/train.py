@@ -20,13 +20,15 @@ DTensors, and the step writes its update into their buffers
 Each rank draws its batches from the stream seeded by its index along the
 mesh's data-like dims and keeps its own rows of them (``shard_batch``).
 ``main(argv)`` returns the loop's ``LoopState``, and destroys the process
-group if it made it.
+group if it made it. ``reference_steps`` runs in one process what a
+``--smoke`` launch over several computes, to hold the launch against.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..configs import build_model, get_arch
@@ -120,6 +122,31 @@ def _main(args):
         data.close()
     print(f"[train] finished at step {out.step}; stragglers={len(out.straggler_events)}")
     return out
+
+
+def reference_steps(arch: str, steps: int, batch: int, seq: int, n_micro: int = 1, world: int = 1, lr: float = 1e-3):
+    """One process's run, on plain CPU tensors, of what ``main`` with
+    ``--arch arch --smoke --steps steps --batch batch --seq seq --n-micro
+    n_micro --lr lr`` computes over ``world`` processes on a (world, 1)
+    mesh: rank r draws the stream seeded r and keeps rows r * batch / world
+    up to the next rank's of each batch; this steps on the batches
+    assembled from those rows. Returns each step's metrics (floats) and
+    the parameters after the last."""
+    cfg = dataclasses.replace(get_arch(arch).smoke, act_dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    opt = AdamW(lr=warmup_cosine(lr, 50, steps), weight_decay=0.01)
+    state, step = opt.init(params), make_lm_train_step(model, opt, n_micro=n_micro, donate=True)
+    streams = [token_batches(batch, seq, cfg.vocab, seed=r) for r in range(world)]
+    rows = batch // world
+    history = []
+    for _ in range(steps):
+        own = [next(s) for s in streams]
+        assembled = {k: torch.from_numpy(np.concatenate([o[k][r * rows : (r + 1) * rows] for r, o in enumerate(own)]))
+                     for k in own[0]}
+        params, state, m = step(params, state, assembled)
+        history.append({k: float(v) for k, v in m.items()})
+    return history, params
 
 
 if __name__ == "__main__":

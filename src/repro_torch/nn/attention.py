@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from ..dist.sharding import blockwise
 from ..kernels import grad_route
 from ..kernels.attention import ops as attention_ops
 from .linear import MultiLinear, OutputLinear
@@ -56,9 +57,15 @@ def causal_window_mask(q_pos, k_pos, window=None):
 
 
 def _sdpa(q, k, v, mask, scale, softcap=None):
-    """q: (B,Sq,Hk,G,D) k: (B,Sk,Hk,D) v: (B,Sk,Hk,Dv) mask: (B|1,1,Sq,Sk)."""
+    """q: (B,Sq,Hk,G,D) k: (B,Sk,Hk,D) v: (B,Sk,Hk,Dv) mask: (B|1,1,Sq,Sk).
+    Over DTensors, block by block over the batch and the heads
+    (``dist.blockwise``)."""
     if mask.dim() != 4:
         raise ValueError(f"mask must be (B|1, 1, Sq, Sk), got {tuple(mask.shape)}")
+    return blockwise(lambda *t: _sdpa_block(*t, scale, softcap), "bqhgd,bkhd,bkhv,bxqk->bqhgv", "bhg", q, k, v, mask)
+
+
+def _sdpa_block(q, k, v, mask, scale, softcap):
     scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
@@ -241,6 +248,17 @@ class Attention(Module):
         return self._out(p, out), cache
 
 
+def _softmax_out(scores, mask, v, eq, scale):
+    scores = scores.float() * scale + _mask_bias(mask)
+    return torch.einsum(eq, torch.softmax(scores, dim=-1).to(v.dtype), v)
+
+
+def _mla_block(q_nope, q_rope, k_nope, k_r, v, mask, scale):
+    """MLA's scores (the no-RoPE and the shared RoPE key parts) and output."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope) + torch.einsum("bqhd,bkd->bhqk", q_rope, k_r)
+    return _softmax_out(scores, mask, v, "bhqk,bkhd->bqhd", scale)
+
+
 @dataclasses.dataclass(frozen=True)
 class MLAAttention(Module):
     """Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434).
@@ -296,10 +314,6 @@ class MLAAttention(Module):
         q = self._wq()(p["wq"], x)
         return q[..., : self.qk_nope_dim], apply_rope(q[..., self.qk_nope_dim :], positions, self.rope_base)
 
-    def _softmax_out(self, scores, mask, v, eq):
-        scores = scores.float() * self._scale + _mask_bias(mask)
-        return torch.einsum(eq, torch.softmax(scores, dim=-1).to(v.dtype), v)
-
     def __call__(self, p, x, positions=None, window=None, causal=True, index_positions=False):
         """``index_positions`` (and ``prefill``'s) is taken for
         ``Attention``'s signature: MLA has no kernel route."""
@@ -316,8 +330,8 @@ class MLAAttention(Module):
                 mask = causal_window_mask(q_pos_c, positions, window)[:, None]
             else:
                 mask = torch.ones((1, 1, q_pos_c.shape[-1], S), dtype=torch.bool, device=x.device)
-            scores = torch.einsum("bqhd,bkhd->bhqk", q_nope_c, k_nope) + torch.einsum("bqhd,bkd->bhqk", q_rope_c, k_r)
-            return self._softmax_out(scores, mask, v, "bhqk,bkhd->bqhd")
+            return blockwise(lambda *t: _mla_block(*t, self._scale), "bqhd,bqhr,bkhd,bkr,bkhv,bxqk->bqhv", "bh",
+                             q_nope_c, q_rope_c, k_nope, k_r, v, mask)
 
         ck = effective_chunk(self.attn_chunk, S, S) if self.attn_chunk else 0
         if ck and S > ck and S % ck == 0:
@@ -367,11 +381,11 @@ class MLAAttention(Module):
             wuk = p["wuk"]["w"].to(x.dtype)  # (kv_lora, H, nope)
             q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, wuk)  # (B,1,H,r)
             scores = torch.einsum("bqhr,bkr->bhqk", q_lat, c_kv) + rope_scores
-            out_lat = self._softmax_out(scores, mask, c_kv, "bhqk,bkr->bqhr")  # (B,1,H,r)
+            out_lat = _softmax_out(scores, mask, c_kv, "bhqk,bkr->bqhr", self._scale)  # (B,1,H,r)
             out = torch.einsum("bqhr,rhd->bqhd", out_lat, p["wuv"]["w"].to(x.dtype))
         else:
             k_nope = self._wuk()(p["wuk"], c_kv)
             v = self._wuv()(p["wuv"], c_kv)
             scores = torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope) + rope_scores
-            out = self._softmax_out(scores, mask, v, "bhqk,bkhd->bqhd")
+            out = _softmax_out(scores, mask, v, "bhqk,bkhd->bqhd", self._scale)
         return OutputLinear(self.n_q, self.v_head_dim, self.d_model)(p["wo"], out), cache

@@ -247,6 +247,24 @@ def tree_unflatten(tree, leaves):
     return fill(tree)
 
 
+class RowMajorGrad(torch.autograd.Function):
+    """The identity, whose gradient is passed back row-major. Over
+    DTensors a gradient whose local tensor is laid out otherwise than its
+    spec declares (an einsum's backward hands back permuted layouts) makes
+    a later view of it fail: the SSD scan's ``dt`` when the sequence is one
+    chunk long (the softplus backward keeps the (b, h, s) layout the scan's
+    einsums give it), and each block ``dist.blockwise`` hands back. The
+    values are unchanged."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def checkpointed(fn: Callable, remat: bool, policy: str = "full") -> Callable:
     """``fn`` under activation checkpointing, as the JAX models wrap a block
     in ``jax.checkpoint`` when their config's ``remat`` is set: its

@@ -19,10 +19,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import blockwise
 from ..kernels import grad_route
 from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ref import segsum, ssd_chunked  # noqa: F401  (re-exported)
-from .module import Module, ParamSpec, lecun_init, normal_init, ones_init, zeros_init
+from .module import Module, ParamSpec, RowMajorGrad, lecun_init, normal_init, ones_init, zeros_init
 from .norm import RMSNorm
 
 
@@ -30,33 +31,33 @@ def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
     """Single-token SSD update.
 
     state: (b, h, p, n); x_t: (b, h, p); dt_t: (b, h); B_t/C_t: (b, g, n)
-    Returns (y_t, new_state).
+    Returns (y_t, new_state). Over DTensors, block by block over the batch
+    and the heads (``dist.blockwise``).
     """
     rep = x_t.shape[1] // B_t.shape[1]
     Bh = B_t.repeat_interleave(rep, dim=1)  # (b, h, n)
     Ch = C_t.repeat_interleave(rep, dim=1)
+    return blockwise(_ssd_update, "bhpn,bhp,bh,h,bhn,bhn->bhp,bhpn", "bh", state, x_t, dt_t, A, Bh, Ch)
+
+
+def _scan_blocks(x, dt, A, B, C, chunk, return_state):
+    """``ssd_chunked``; over DTensors, block by block over the batch and the
+    heads (``dist.blockwise``). A block of heads needs its own groups'
+    projections, so B and C are spread from groups to heads first (the
+    values the scan spreads them to itself)."""
+    rep = x.shape[2] // B.shape[2]
+    Bh, Ch = B.repeat_interleave(rep, dim=2), C.repeat_interleave(rep, dim=2)  # (b, s, h, n)
+    outs = "bshp,bhpn" if return_state else "bshp"
+    return blockwise(lambda *t: ssd_chunked(*t, chunk=chunk, return_state=return_state), "bshp,bsh,h,bshn,bshn->" + outs,
+                     "bh", x, dt, A, Bh, Ch)
+
+
+def _ssd_update(state, x_t, dt_t, A, Bh, Ch):
     dA = torch.exp(dt_t * A)  # (b, h)
     dBx = torch.einsum("bh,bhn,bhp->bhpn", dt_t, Bh, x_t)
     new_state = state * dA[..., None, None] + dBx
     y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
     return y, new_state
-
-
-class _RowMajorGrad(torch.autograd.Function):
-    """The identity, whose gradient is passed back row-major. When the
-    sequence is one chunk long, the scan's einsums hand ``dt``'s gradient
-    back in (b, h, s) layout; the pointwise backward of the softplus keeps
-    that layout, and over DTensors, which declare that op's result
-    row-major, the in-projection's backward then views a tensor that is
-    not. The values are unchanged."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.contiguous()
 
 
 class _FlatHeads(torch.autograd.Function):
@@ -158,12 +159,12 @@ class Mamba2Block(Module):
         Cmat = xbc[..., di + g * n :].reshape(B_, S, g, n)
         dt = F.softplus(dt.float() + p["dt_bias"]).to(x.dtype)  # (B,S,H)
         if dt.requires_grad:
-            dt = _RowMajorGrad.apply(dt)
+            dt = RowMajorGrad.apply(dt)
         A = -torch.exp(p["A_log"].float()).to(x.dtype)  # (H,)
         # the kernel on a CUDA tensor where autograd needs no gradient; the
         # plain scan elsewhere (the CPU, a dry run's meta tensors, training)
         kernel = xs.device.type == "cuda" and not grad_route("ssd", xs, dt, A, Bmat, Cmat)
-        scan = ssd_ops.ssd if kernel else ssd_chunked
+        scan = ssd_ops.ssd if kernel else _scan_blocks
         out = scan(xs, dt, A, Bmat, Cmat, chunk=min(self.chunk, S), return_state=return_state)
         y, state = out if return_state else (out, None)
         y = y + xs * p["D"].to(x.dtype)[None, None, :, None]

@@ -15,7 +15,13 @@ coordinator it is given), each collective bounded by a 120 s timeout.
   loop with an error well inside the group's timeout, and the newest
   checkpoint restores to the parameters of the last step both finished.
 - ``launch.train.main`` in two processes (the MoE smoke model) against
-  one process's step on the batch assembled from each rank's rows.
+  one process's step on the batch assembled from each rank's rows; the
+  same for the Mamba2 smoke model, whose replicated parameters (``A_log``
+  among them) must also stay equal on both ranks.
+- The gradients of the Mamba2, Hymba and MLA smoke models on a (2, 2)
+  ("data", "model") mesh against one process's, on every rank: an op run
+  block by block (``dist.blockwise``) whose argument lacks a split dim
+  hands back a partial sum of its gradient.
 - The embedding lookup from tables split over the vocab or with the batch
   split over both mesh dims against the plain lookup.
 - ``maybe_initialize_distributed`` refusing ranks whose PYTHONHASHSEEDs
@@ -226,17 +232,54 @@ def _rescue_rank(rank, world, store, ckpt_dir, out):
         dist.destroy_process_group()
 
 
-def _launcher_rank(rank, world, port, out):
+def _launcher_rank(rank, world, port, out, arch="deepseek_moe_16b", n_micro=2):
     from repro_torch.launch import train as launch_train
 
     torch.set_num_threads(1)
-    res = launch_train.main(["--arch", "deepseek_moe_16b", "--smoke", "--steps", "2", "--batch", "4", "--seq", "16",
-                             "--n-micro", "2", "--device", "cpu",
+    res = launch_train.main(["--arch", arch, "--smoke", "--steps", "2", "--batch", "4", "--seq", "16",
+                             "--n-micro", str(n_micro), "--device", "cpu",
                              "--log-every", "1", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
                              str(world), "--process-id", str(rank)])
     assert not dist.is_initialized()
     torch.save({"losses": [h["loss"] for h in res.history], "aux": [h["aux"] for h in res.history], "step": res.step,
-                "local": [tuple(t.to_local().shape) for t in tree_leaves(res.params)]}, out.format(rank))
+                "grad_norms": [h["grad_norm"] for h in res.history],
+                "local": [tuple(t.to_local().shape) for t in tree_leaves(res.params)],
+                "blocks": [t.to_local() for t in tree_leaves(res.params)],
+                "split": [next((p.dim for p in t.placements if p.is_shard()), None) for t in tree_leaves(res.params)]},
+               out.format(rank))
+
+
+class _GradRecorder:
+    """An optimizer that keeps the gradients it is given and updates
+    nothing."""
+
+    grads = None
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return params, state, {}
+
+
+def _grads_rank(rank, world, store, arch, out):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.data import shard_batch
+    from repro_torch.dist import device_put, on_mesh, train_shardings
+
+    _join(rank, world, store)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        cfg = dataclasses.replace(get_arch(arch).smoke, act_dtype=torch.float32)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        host = _lm_batch(cfg)
+        sh = train_shardings(mesh, model.axes(), model.abstract(), AdamW(lr=1e-3).init(params), host["tokens"].shape[0])
+        rec = _GradRecorder()
+        _, _, m = on_mesh(make_lm_train_step(model, rec))(device_put(params, sh.params), {}, shard_batch(host, sh.batch))
+        torch.save({"loss": float(m["loss"]), "grads": [g.full_tensor() for g in tree_leaves(rec.grads)]},
+                   out.format(rank))
+    finally:
+        dist.destroy_process_group()
 
 
 def _lookup_rank(rank, world, store, out):
@@ -393,30 +436,65 @@ def test_two_process_launcher_equals_one_process_on_the_assembled_batch(tmp_path
     load-balance terms equal (1e-5 relative) one process's steps on the
     batches assembled from those rows; each rank holds half of every
     parameter split over "data"."""
-    from repro_torch.data import token_batches
-    from repro_torch.train.optimizer import warmup_cosine
+    from repro_torch.launch.train import reference_steps
 
     out = str(tmp_path / "rank{}.pt")
     _spawn(_launcher_rank, 2, _free_port(), out)
     ranks = [torch.load(out.format(r)) for r in range(2)]
     assert ranks[0]["losses"] == ranks[1]["losses"] and ranks[0]["step"] == 2
-    cfg = dataclasses.replace(get_arch("deepseek_moe_16b").smoke, act_dtype=torch.float32)
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0))
-    opt = AdamW(lr=warmup_cosine(1e-3, 50, 2), weight_decay=0.01)
-    state, step = opt.init(params), make_lm_train_step(model, opt, n_micro=2, donate=True)
-    streams = [token_batches(4, 16, cfg.vocab, seed=r) for r in range(2)]
-    want, aux = [], []
-    for _ in range(2):
-        own = [next(s) for s in streams]
-        batch = {k: torch.from_numpy(np.concatenate([own[0][k][:2], own[1][k][2:]])) for k in own[0]}
-        params, state, m = step(params, state, batch)
-        want.append(float(m["loss"]))
-        aux.append(float(m["aux"]))
-    np.testing.assert_allclose(ranks[0]["losses"], want, rtol=1e-5, atol=0)
-    np.testing.assert_allclose(ranks[0]["aux"], aux, rtol=1e-5, atol=0)
+    history, params = reference_steps("deepseek_moe_16b", 2, 4, 16, n_micro=2, world=2)
+    np.testing.assert_allclose(ranks[0]["losses"], [h["loss"] for h in history], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(ranks[0]["aux"], [h["aux"] for h in history], rtol=1e-5, atol=0)
     shapes = [tuple(t.shape) for t in tree_leaves(params)]
     assert any(loc != full for loc, full in zip(ranks[0]["local"], shapes))
+
+
+def test_two_process_mamba2_launcher_keeps_the_replicas_equal(tmp_path):
+    """The launcher test's two ranks on a (2, 1) mesh with the Mamba2 smoke
+    model (its scan run block by block over the batch): both steps' losses
+    and gradient norms equal (1e-5 relative) one process's on the
+    assembled batches, and after two steps both ranks hold the same
+    parameters, within 1e-6 of one process's. A gradient that stayed a
+    rank's partial sum (``A_log``'s, whose scan argument has no batch dim)
+    would update each replica apart."""
+    from repro_torch.launch.train import reference_steps
+
+    out = str(tmp_path / "rank{}.pt")
+    _spawn(_launcher_rank, 2, _free_port(), out, "mamba2_2_7b", 1)
+    ranks = [torch.load(out.format(r)) for r in range(2)]
+    full = []
+    for a, b, d in zip(ranks[0]["blocks"], ranks[1]["blocks"], ranks[0]["split"]):
+        if d is None:  # a replica on each rank
+            assert torch.equal(a, b)
+        full.append(a if d is None else torch.cat([a, b], dim=d))
+    history, params = reference_steps("mamba2_2_7b", 2, 4, 16, world=2)
+    np.testing.assert_allclose(ranks[0]["losses"], [h["loss"] for h in history], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(ranks[0]["grad_norms"], [h["grad_norm"] for h in history], rtol=1e-5, atol=0)
+    for a, b in zip(full, tree_leaves(params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "hymba_1_5b", "deepseek_v2_lite_16b"])
+def test_gradients_on_a_2x2_mesh_equal_one_process(arch, tmp_path):
+    """One step's gradients of the smoke model (f32) on a (2, 2) ("data",
+    "model") mesh, the batch over "data" and the heads over "model",
+    gathered on each of the four ranks, against one process's: within 1e-5
+    of each leaf's largest. Mamba2's and Hymba's scans and Hymba's
+    attention run block by block over the batch and the heads, and so does
+    MLA's attention, whose shared RoPE key has no heads dim."""
+    out = str(tmp_path / "rank{}.pt")
+    _spawn(_grads_rank, 4, str(tmp_path / "store"), arch, out)
+    cfg = dataclasses.replace(get_arch(arch).smoke, act_dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rec = _GradRecorder()
+    _, _, m = make_lm_train_step(model, rec)(params, {}, tree_map(torch.from_numpy, _lm_batch(cfg)))
+    want = tree_leaves(rec.grads)
+    for r in range(4):
+        got = torch.load(out.format(r))
+        assert abs(got["loss"] - float(m["loss"])) <= 1e-5 * abs(float(m["loss"]))
+        for a, b in zip(got["grads"], want):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()) + 1e-12)
 
 
 _JOIN_TWO = """

@@ -34,12 +34,7 @@ FAMILIES = {
     "whisper": "whisper_small",
 }
 # small cells of each kind; "long" is the batch-1 decode (sequence-sharded caches)
-SHAPES = {
-    "train": {"kind": "train", "seq_len": 32, "global_batch": 8},
-    "prefill": {"kind": "prefill", "seq_len": 32, "global_batch": 4},
-    "decode": {"kind": "decode", "seq_len": 32, "global_batch": 8},
-    "long": {"kind": "decode", "seq_len": 64, "global_batch": 1},
-}
+SHAPES = dryrun.SMOKE_SHAPES
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -79,15 +74,6 @@ def _smoke(arch):
     return dataclasses.replace(spec, config=spec.smoke)
 
 
-def _plain(x):
-    """A DTensor's global shape as a plain meta tensor; other leaves as they are."""
-    return torch.empty(x.shape, dtype=x.dtype, device="meta") if isinstance(x, DTensor) else x
-
-
-def _shapes(tree):
-    return [(tuple(t.shape), t.dtype) for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
-
-
 def _run_cell(spec, shape, mesh):
     cell = specs.build_cell(spec, shape, mesh, n_micro=2)
     out, counts = roofline.count_run(cell.fn, cell.args)
@@ -98,20 +84,9 @@ def _run_cell(spec, shape, mesh):
 
 
 def check_cell(mesh, family, kind):
-    """Build and run one cell of ``family``'s smoke config on ``mesh``: its
-    outputs have the global shapes of the same step on plain meta tensors;
-    the counts are positive, and a train cell (FSDP weights, batch-sharded
-    activations) counts collectives."""
-    spec = _smoke(FAMILIES[family])
-    cell, out, counts = _run_cell(spec, kind, mesh)
-    assert cell.kind == SHAPES[kind]["kind"] and cell.n_chips == mesh.size()
-    plain_out = cell.fn(*tree_map(_plain, cell.args))
-    assert _shapes(tree_map(_plain, out)) == _shapes(plain_out)
-    assert counts.flops > 0 and counts.bytes_accessed > 0
-    assert counts.memory["arguments"] > 0 and counts.memory["total"] >= counts.memory["arguments"]
-    if kind == "train":
-        assert sum(counts.collective_counts.values()) > 0
-        assert counts.collective_bytes["all-gather"] > 0 or counts.collective_bytes["all-reduce"] > 0
+    """Build, run and check one cell of ``family``'s smoke config on
+    ``mesh`` (``launch.dryrun.check_cell``)."""
+    dryrun.check_cell(mesh, FAMILIES[family], kind, SHAPES)
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode", "long", "train"])

@@ -8,6 +8,8 @@ executor, a hot swap (by hand, by the re-planner in the foreground and in
 a background thread) drops no frame, keeps per-stream FIFO order and keeps
 the outputs bit-exact against an unswapped run.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -33,6 +35,11 @@ PORT = dict(Staged=TStaged, Graph=TGraph, meta=tmeta, Engine=TEngine, plan=tplan
 JAX = dict(Staged=JStaged, Graph=JGraph, meta=jmeta, Engine=JEngine, plan=jplan, Config=JConfig,
            Replanner=JReplanner, Executor=JExecutor, Spec=JSpec, Obs=JObs,
            step=lambda s: {"x": s["x"] * 1.5 + 0.5})
+
+
+# the host cost per layer the end-to-end re-planning test reports for every
+# profiled span, beside the stall it injects
+HOST_S_PER_LAYER = 1e-4
 
 
 def _toy(pkg, n_layers=8, name="toy", flops=1e9):
@@ -159,21 +166,30 @@ def test_hot_swap_mid_stream_preserves_order_and_outputs(jit_segments):
 def test_replan_loop_end_to_end_recovers_partitions(background):
     """Real executor ticks: a sustained injected stall on one engine makes
     the re-planner swap layers off it (planned in a worker thread when
-    ``background``), with zero dropped frames and FIFO order."""
+    ``background``), with zero dropped frames and FIFO order. The
+    re-planner reads each profiled span as a fixed host cost per layer plus
+    the stall injected there: what it reacts to is the stall, not the
+    host's timing of near-empty spans, whose noise a loaded CPU makes as
+    large as the stall (a swap before the stall, or one after it that
+    answered noise, then moved layers onto the stalled engine)."""
     sm = _toy(PORT, n_layers=10, name="toy10")
     engines = _engines(PORT)
     ir = tplan([sm.graph], engines)
     pert = {"on": False}
 
+    def stall(engine, lo, hi):
+        return 5e-3 * (hi - lo) if pert["on"] and engine == 1 else 0.0
+
     def delay(seg):
-        # a stall well above the host-timing noise of a loaded CPU
-        return 5e-3 * (seg.hi - seg.lo) if pert["on"] and seg.engine == 1 else 0.0
+        return stall(seg.engine, seg.lo, seg.hi)
 
     cfg = ReplanConfig(drift_threshold=1.0, hysteresis=2, cooldown_ticks=4, profile_every=1,
                        ema_alpha=0.5, min_improvement=0.01, background=background)
     rp = Replanner([sm.graph], engines, cfg)
     ex = StreamExecutor([sm], ir, [StreamSpec("s0", 0)], max_queue=8, segment_delay_fn=delay)
     rp.attach(ex)
+    ex.on_segment = lambda obs: rp.observe(dataclasses.replace(
+        obs, wall_s=HOST_S_PER_LAYER * (obs.hi - obs.lo) + stall(obs.engine, obs.lo, obs.hi)))
     assert not ex.captures_graphs  # on the CPU the worker also warms the plan
     swapped_to = []
     real_swap = ex.swap_plan
@@ -195,8 +211,7 @@ def test_replan_loop_end_to_end_recovers_partitions(background):
     window(30, 200)
     assert any(e.swapped for e in rp.events), rp.summary()
     # the first swap after the stall starts answers it: work moves off the
-    # stalled engine (other fires react to host-timing noise, which a
-    # loaded CPU makes large)
+    # stalled engine
     first = next(new_ir for on, new_ir in swapped_to if on)
     assert sum(s.hi - s.lo for s in first.engine_spans(1)) < sum(s.hi - s.lo for s in ir.engine_spans(1))
     assert len(ex.completions) == submitted == len(ex.outputs["s0"])
