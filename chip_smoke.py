@@ -167,7 +167,11 @@ toolkit, this
    a cell: ``launch.dryrun.check_cell``) and the two-rank launches of
    ``LAUNCHES`` (``launch.train.main`` in two gloo ranks against one
    process's steps, ``launch.train.reference_steps``, within
-   ``LAUNCH_RTOL``, the replicated parameters equal on both ranks); then the paper's
+   ``LAUNCH_RTOL``, the replicated parameters equal on both ranks) and
+   the cases of ``tests/test_torch_dist_data.py`` (``DATA_KINDS``: every
+   ``launch.dryrun.DATA_CASES`` case on four gloo ranks of a (2, 2) mesh
+   against the same call in one process, within ``DATA_TOL`` of the
+   reference's largest value; one line per kind); then the paper's
    Pix2Pix + YOLOv8 graphs planned once on the host over
    ``h100_submesh_engines()`` (cut points, expected cycle).
 
@@ -2859,6 +2863,9 @@ SMOKE_2X2_CELLS = tuple((a, "decode") for a in ("gemma2_2b", "deepseek_moe_16b",
 # both ranks' tokens; Mamba2, whose scan argument A has no batch dim
 LAUNCHES = (("deepseek_moe_16b", 2), ("mamba2_2_7b", 1))
 LAUNCH_RTOL = 1e-5  # tests/test_torch_dist_ranks.py's bound on the two ranks' losses
+# tests/test_torch_dist_data.py's cases (launch.dryrun.DATA_CASES): each kind
+# on four gloo ranks of a (2, 2) ("data", "model") mesh against one process
+DATA_KINDS = ("decode", "long", "prefill", "train")
 
 
 def _smoke_2x2_cells():
@@ -2898,18 +2905,15 @@ def _two_rank_launch_rank(rank, world, port, arch, n_micro, queue):
                torch.cuda.is_initialized()))
 
 
-def _two_rank_launch(arch, n_micro):
-    """``arch``'s smoke config trained two steps by ``launch.train.main`` in
-    two gloo ranks on the host, against one process's steps on the batches
-    assembled from each rank's rows (``launch.train.reference_steps``):
-    losses, load-balance terms and gradient norms within ``LAUNCH_RTOL``,
-    and the replicated parameters equal on both ranks. Returns the row."""
+def _gloo_ranks(target, world, *args):
+    """``target(rank, world, port, *args, queue)`` in ``world`` spawned
+    processes that meet over TCP on a free local port, every rank with
+    ``PYTHONHASHSEED=0`` (DTensor's ties follow each process's string
+    hashing); each rank puts ``(rank, *rest)`` on the queue. Returns
+    ``{rank: rest}``; raises where a rank exits non-zero. Every process
+    is joined or killed."""
     import multiprocessing
     import socket
-
-    import numpy as np
-
-    from repro_torch.launch.train import reference_steps
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -2917,9 +2921,9 @@ def _two_rank_launch(arch, n_micro):
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
     seed = os.environ.get("PYTHONHASHSEED")
-    os.environ["PYTHONHASHSEED"] = "0"  # DTensor's ties follow each process's string hashing
+    os.environ["PYTHONHASHSEED"] = "0"
     try:
-        ranks = [ctx.Process(target=_two_rank_launch_rank, args=(r, 2, port, arch, n_micro, queue)) for r in range(2)]
+        ranks = [ctx.Process(target=target, args=(r, world, port, *args, queue)) for r in range(world)]
         for p in ranks:
             p.start()
     finally:
@@ -2934,9 +2938,24 @@ def _two_rank_launch(arch, n_micro):
             p.join(timeout=60)
             if p.is_alive():
                 p.kill()
-    if any(p.exitcode for p in ranks) or any(g[2] for g in got.values()):
-        raise AssertionError(f"{arch} launch ranks: exit codes {[p.exitcode for p in ranks]}, "
-                             f"CUDA context {[g[2] for g in got.values()]}")
+    if any(p.exitcode for p in ranks):
+        raise AssertionError(f"{target.__name__}: exit codes {[p.exitcode for p in ranks]}")
+    return got
+
+
+def _two_rank_launch(arch, n_micro):
+    """``arch``'s smoke config trained two steps by ``launch.train.main`` in
+    two gloo ranks on the host, against one process's steps on the batches
+    assembled from each rank's rows (``launch.train.reference_steps``):
+    losses, load-balance terms and gradient norms within ``LAUNCH_RTOL``,
+    and the replicated parameters equal on both ranks. Returns the row."""
+    import numpy as np
+
+    from repro_torch.launch.train import reference_steps
+
+    got = _gloo_ranks(_two_rank_launch_rank, 2, arch, n_micro)
+    if any(g[2] for g in got.values()):
+        raise AssertionError(f"{arch} launch ranks: CUDA context {[g[2] for g in got.values()]}")
     history, _ = reference_steps(arch, 2, 4, 16, n_micro=n_micro, world=2)
     want = {k: [h[k] for h in history] for k in got[0][0]}
     rel = max(abs(a - b) / abs(b) for k in want for a, b in zip(got[0][0][k], want[k]) if b)
@@ -2948,12 +2967,64 @@ def _two_rank_launch(arch, n_micro):
             "replicas": len(got[0][1])}
 
 
+def _data_rank(rank, world, port, kind, queue):
+    """One of four gloo ranks on a (2, 2) ("data", "model") mesh running
+    every ``launch.dryrun.DATA_CASES`` case of ``kind`` and, on plain
+    tensors in this process, the same call: each case's error
+    (``data_error``) or the traceback it raised, and whether the rank
+    made a CUDA context."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        got = dryrun.data_rank(kind, init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model")))
+    finally:
+        dist.destroy_process_group()
+    errs = {a: r if isinstance(r, str) else dryrun.data_error(r, dryrun.data_outputs(a, kind))
+            for a, r in got.items()}
+    queue.put((rank, errs, torch.cuda.is_initialized()))
+
+
+def _data_check(kind):
+    """``kind``'s ``DATA_CASES`` on four gloo ranks against one process:
+    each case's largest error over the ranks. Raises where a rank raised,
+    made a CUDA context or a case is outside ``DATA_TOL``."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    got = _gloo_ranks(_data_rank, 4, kind)
+    if any(g[1] for g in got.values()):
+        raise AssertionError(f"ranks with data, {kind}: CUDA context {[g[1] for g in got.values()]}")
+    raised = {a: e for g in got.values() for a, e in g[0].items() if isinstance(e, str)}
+    if raised:
+        raise AssertionError(f"ranks with data, {kind}: "
+                             + "\n".join(f"{a} raised:\n{e}" for a, e in raised.items()))
+    cases = {a: max(g[0][a] for g in got.values()) for a in got[0][0]}
+    out = {a: e for a, e in cases.items() if not e <= dryrun.DATA_TOL}
+    if out:
+        raise AssertionError(f"ranks with data, {kind}: {out} outside {dryrun.DATA_TOL} of the reference's "
+                             "largest value")
+    return {"kind": kind, "cases": cases, "max_err": max(cases.values()), "tol": dryrun.DATA_TOL,
+            "torch": torch.__version__}
+
+
 def _dryrun_task(task):
     """One dry-run task in a process of its own (spawned): a cell's row
     (``("cell", (arch, shape, multi_pod))``), the hillclimb script's
     (``("hillclimb", (arch, shape, variant))``), the smoke-width 2 x 2
-    cells' (``("2x2", None)``) or a two-rank launch's (``("launch", (arch,
-    micro-batches))``),
+    cells' (``("2x2", None)``), a two-rank launch's (``("launch", (arch,
+    micro-batches))``) or one kind of the cases on ranks with data
+    (``("data", kind)``),
     its host seconds, and whether the process has made a CUDA context (it
     must not)."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -2974,6 +3045,8 @@ def _dryrun_task(task):
         row = dict(torch_hillclimb.run(arch, shape, **variant), status="ok")
     elif kind == "2x2":
         row = {"cells": _smoke_2x2_cells(), "status": "ok"}
+    elif kind == "data":
+        row = dict(_data_check(args), status="ok")
     else:
         row = dict(_two_rank_launch(*args), status="ok")
     return row, time.perf_counter() - t0, torch.cuda.is_initialized()
@@ -3013,7 +3086,7 @@ def dryrun_phase(smi):
     # the longest first (gemma2-2b's train_4k cell, the hillclimb call, the
     # 2 x 2 cells, the launches), so that the short cells fill in at the end
     tasks = ([("cell", DRYRUN_CELLS[0]), ("hillclimb", HILLCLIMB), ("2x2", None)] + [("launch", a) for a in LAUNCHES]
-             + [("cell", c) for c in DRYRUN_CELLS[1:]])
+             + [("data", k) for k in DATA_KINDS] + [("cell", c) for c in DRYRUN_CELLS[1:]])
     with concurrent.futures.ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn")) as ex:
         futures = [ex.submit(_dryrun_task, t) for t in tasks]
         done = [f.result(timeout=900) for f in futures]
@@ -3026,6 +3099,13 @@ def dryrun_phase(smi):
             print(f"dry run, smoke widths on a fake 2 x 2 (data, model) group: {len(r['cells'])} cells ok ("
                   + ", ".join(f"{c['arch']} {c['kind']} {c['collectives']} collectives {c['host_s']:.1f} s"
                               for c in r["cells"]) + f"), host {seconds:.1f} s")
+            rows.append(dict(r, task=kind, host_s=seconds))
+            continue
+        if kind == "data":
+            print(f"ranks with data, {args}: {len(r['cases'])} cases on 4 gloo ranks, (2, 2) (data, model), "
+                  f"torch {r['torch']}: largest error {r['max_err']:.3e} of the reference's largest value "
+                  f"(bound {r['tol']}) (" + ", ".join(f"{a} {e:.2e}" for a, e in r["cases"].items())
+                  + f"), host {seconds:.1f} s")
             rows.append(dict(r, task=kind, host_s=seconds))
             continue
         if kind == "launch":
@@ -3047,9 +3127,10 @@ def dryrun_phase(smi):
               f"{r['memory_per_device']['total'] / 2**30:.2f} GiB, collectives {counts} "
               "(GiB by kind " + ", ".join(f"{k} {v:.3f}" for k, v in gib.items()) + f"), host {seconds:.1f} s")
         rows.append(dict(r, task=kind, host_s=seconds))
-    print(f"dry run: {len(DRYRUN_CELLS)} cells, the hillclimb call, {len(SMOKE_2X2_CELLS)} smoke-width 2 x 2 cells and "
-          f"{len(LAUNCHES)} two-rank launches ok in {wall:.1f} s on the host (4 processes), no CUDA context in their "
-          f"processes | {smi}")
+    n_data = sum(len(r["cases"]) for r in rows if r["task"] == "data")
+    print(f"dry run: {len(DRYRUN_CELLS)} cells, the hillclimb call, {len(SMOKE_2X2_CELLS)} smoke-width 2 x 2 "
+          f"cells, {len(LAUNCHES)} two-rank launches and {n_data} cases on ranks with data ok in "
+          f"{wall:.1f} s on the host (4 processes), no CUDA context in their processes | {smi}")
     return {"rows": rows, "wall_s": wall, "h100_plan": _h100_plan_line(smi)}
 
 

@@ -119,6 +119,143 @@ def check_cell(mesh, arch_name: str, shape_name: str, shapes: dict = SMOKE_SHAPE
     return counts
 
 
+# the dry run's cells on ranks with data: the seven families at smoke width
+# in f32 (prefill B 4 x S 16; batch-8 decode and batch-1 decode on
+# sequence-split caches of DATA_CACHE_LEN slots, DATA_STEPS steps so that
+# the ring buffer wraps and MLA's write clamps; the train step where no
+# other check holds it on a split mesh), each held to one process's
+DATA_ARCHS = ("deepseek_moe_16b", "deepseek_v2_lite_16b", "gemma2_2b", "hymba_1_5b", "mamba2_2_7b",
+              "qwen2_vl_7b", "whisper_small")
+DATA_CASES = tuple((a, k) for k in ("prefill", "decode", "long") for a in DATA_ARCHS) + tuple(
+    (a, "train") for a in ("whisper_small", "qwen2_vl_7b"))
+DATA_B, DATA_S, DATA_DECODE_B, DATA_CACHE_LEN, DATA_STEPS, DATA_N_IMG = 4, 16, 8, 8, 10, 4
+DATA_TOL = 1e-5  # of each reference leaf's largest magnitude
+
+
+class _GradRecorder:
+    """An optimizer that keeps the gradients it is given and updates
+    nothing."""
+
+    grads = None
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return params, state, {}
+
+
+def _data_inputs(arch, kind, model):
+    """The case's inputs as numpy arrays, drawn from one seed."""
+    import numpy as np
+
+    from ..nn.module import tree_map
+
+    cfg = model.cfg
+    rng = np.random.default_rng(11)
+    if kind in ("decode", "long"):
+        batch = DATA_DECODE_B if kind == "decode" else 1
+        caches = model.init_caches(batch, DATA_CACHE_LEN, dtype=torch.float32)
+        return {"tokens": rng.integers(0, cfg.vocab, (DATA_STEPS, batch, 1)).astype(np.int32),
+                "caches": tree_map(lambda c: rng.standard_normal(tuple(c.shape)).astype(np.float32), caches)}
+    B, S = DATA_B, DATA_S
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if kind == "train":
+        out["labels"] = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    if arch == "whisper_small":
+        out["frames"] = rng.standard_normal((B, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    if kind == "train" and getattr(cfg, "mrope_sections", None):
+        out["positions"] = rng.integers(0, S, (B, S, 3)).astype(np.int32)
+        out["extra_embeds"] = rng.standard_normal((B, DATA_N_IMG, cfg.d_model)).astype(np.float32)
+        out["embed_positions"] = np.stack([rng.permutation(S)[:DATA_N_IMG] for _ in range(B)]).astype(
+            np.int32)
+    return out
+
+
+def data_outputs(arch: str, kind: str, mesh=None) -> list:
+    """One case of ``DATA_CASES``: ``arch``'s smoke config in f32 (f32
+    caches), the parameters of seed 0, its ``kind`` step on the inputs of
+    one numpy seed, and every output as a whole tensor (the logits of each
+    step and each cache leaf; the loss and each gradient). On plain
+    tensors without ``mesh``; on ``mesh`` placed as the cells are: a
+    serving step's parameters by ``default_rules(False, ...)``, its batch
+    over the data-like dims, its caches by ``cache_shardings`` (on the
+    sequence at batch 1); a train step's by ``train_shardings`` and
+    ``shard_batch``, without ``act_spec``."""
+    from ..configs import build_model
+    from ..data import shard_batch
+    from ..dist.sharding import (batch_sharding, cache_shardings, default_rules, device_put, mesh_ops,
+                                 on_mesh, to_global, train_shardings, tree_shardings_shaped)
+    from ..nn.module import tree_leaves, tree_map
+    from ..train.optimizer import AdamW
+    from ..train.steps import make_lm_train_step
+
+    model = build_model(dataclasses.replace(get_arch(arch).smoke, act_dtype=torch.float32))
+    params = model.init(torch.Generator().manual_seed(0))
+    host = _data_inputs(arch, kind, model)
+    if kind == "train":
+        rec = _GradRecorder()
+        batch, step = tree_map(torch.from_numpy, host), make_lm_train_step(model, rec)
+        if mesh is not None:
+            sh = train_shardings(mesh, model.axes(), model.abstract(), AdamW(lr=1e-3).init(params), DATA_B)
+            params, batch, step = device_put(params, sh.params), shard_batch(host, sh.batch), on_mesh(step)
+        _, _, m = step(params, {}, batch)
+        return [to_global(m["loss"])] + [to_global(g) for g in tree_leaves(rec.grads)]
+
+    def put(x, sharding):
+        return x if mesh is None else device_put(x, sharding)
+
+    caches = tree_map(torch.from_numpy, host.get("caches", {}))
+    bsh = psh = csh = None
+    if mesh is not None:
+        rules = default_rules(False, mesh.mesh_dim_names)
+        bsh = batch_sharding(mesh, host["tokens"].shape[-2] if kind != "prefill" else DATA_B, rules)
+        psh = tree_shardings_shaped(mesh, model.axes(), params, rules)
+        csh = cache_shardings(mesh, caches, rules, seq_sharded=kind == "long") if caches else None
+    params = put(params, psh)
+    with torch.no_grad(), mesh_ops():
+        if kind == "prefill":
+            logits, caches = model.prefill(params, *(put(torch.from_numpy(host[k]), bsh)
+                                                     for k in ("frames", "tokens") if k in host))
+            outs = [logits]
+        else:
+            caches, outs = put(caches, csh), []
+            for t in range(DATA_STEPS):
+                token = put(torch.from_numpy(host["tokens"][t]), bsh)
+                logits, caches = model.decode_step(params, token, caches, t)
+                outs.append(logits)
+        return [to_global(x) for x in outs + tree_leaves(caches)]
+
+
+def data_error(got: list, want: list) -> float:
+    """The largest of the leaves' max |got - want| over max |want| (inf
+    where the leaves' count, a shape or a dtype differs, or a zero leaf
+    is not matched exactly)."""
+    worst = 0.0
+    if len(got) != len(want):
+        return float("inf")
+    for a, b in zip(got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return float("inf")
+        if not a.numel():
+            continue
+        err, top = float((a - b).abs().max()), float(b.abs().max())
+        worst = max(worst, err / top if top else (0.0 if err == 0 else float("inf")))
+    return worst
+
+
+def data_rank(kind: str, mesh) -> dict:
+    """Every ``DATA_CASES`` case of ``kind`` on this rank's ``mesh``:
+    ``{arch: outputs}``, or the traceback a case raised (the ranks raise
+    alike, before the op's collectives, and go on together)."""
+    got = {}
+    for arch, k in DATA_CASES:
+        if k == kind:
+            try:
+                got[arch] = data_outputs(arch, kind, mesh)
+            except Exception:
+                got[arch] = traceback.format_exc()
+    return got
+
+
 def run_cell(arch_name: str, shape_name: str, multi_pod: bool, verbose: bool = True) -> dict:
     spec = get_arch(arch_name)
     mesh_name = "2x16x16" if multi_pod else "16x16"

@@ -287,10 +287,10 @@ class TransformerLM(Module):
         x = Embedding(c.vocab, c.d_model, scale_by_sqrt_d=c.embed_scale)(p["embed"], tokens).to(c.act_dtype)
         if extra_embeds is not None:
             # VLM stub frontend: scatter precomputed patch embeddings into the
-            # sequence at the given positions (B, n_img) int
+            # sequence at the given positions (B, n_img) int; out of place, so
+            # DTensor may place the write for whatever split ``x`` has
             bidx = torch.arange(x.shape[0], device=x.device)[:, None]
-            x = x.clone()
-            x[bidx, embed_positions.long()] = extra_embeds.to(c.act_dtype)
+            x = x.index_put((bidx, embed_positions.long()), extra_embeds.to(c.act_dtype))
         return x
 
     # ---- forward ---------------------------------------------------------------------

@@ -92,6 +92,16 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, window, scale, softcap, chunk):
     return torch.cat(outs, dim=1)
 
 
+def _write_slot(cache, new, slot: int):
+    """``cache`` (B, S, ...) with ``new`` (B, 1, ...) written at ``slot`` of
+    its sequence dim, out of place (``jax.lax.dynamic_update_slice``): a
+    select against the slot's mask, so a DTensor cache split over the
+    sequence is written on the rank that holds the slot (an item assignment
+    into its clone writes nothing there)."""
+    at = torch.arange(cache.shape[1], device=new.device) == slot
+    return torch.where(at.view(1, -1, *(1,) * (cache.dim() - 2)), new.to(cache.dtype), cache)
+
+
 def _arange(S, device):
     return torch.arange(S, device=device)[None, :]
 
@@ -235,9 +245,7 @@ class Attention(Module):
             k_pos = torch.full((1, 1), t, dtype=torch.int32, device=dev)
         else:
             slot = t % S  # full cache: S >= max_len so slot == t
-            k, v = cache["k"].clone(), cache["v"].clone()
-            k[:, slot] = k_new[:, 0].to(k.dtype)
-            v[:, slot] = v_new[:, 0].to(v.dtype)
+            k, v = _write_slot(cache["k"], k_new, slot), _write_slot(cache["v"], v_new, slot)
             base = torch.arange(S, dtype=torch.int32, device=dev)
             # ring buffer: absolute position of each slot given current t
             k_pos = torch.where(base <= slot, t - (slot - base), t - (S - (base - slot)))[None, :]
@@ -367,9 +375,7 @@ class MLAAttention(Module):
         c_new, kr_new = self._latents(p, x, pos)
         S = cache["c_kv"].shape[1]
         slot = min(t, S - 1)
-        c_all, kr_all = cache["c_kv"].clone(), cache["k_r"].clone()
-        c_all[:, slot] = c_new[:, 0].to(c_all.dtype)
-        kr_all[:, slot] = kr_new[:, 0].to(kr_all.dtype)
+        c_all, kr_all = _write_slot(cache["c_kv"], c_new, slot), _write_slot(cache["k_r"], kr_new, slot)
         cache = {"c_kv": c_all, "k_r": kr_all}
         c_kv, k_r = c_all.to(x.dtype), kr_all.to(x.dtype)
         k_pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]

@@ -44,6 +44,7 @@ import torch.distributed as dist  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
 
 from repro_torch.configs import build_model, get_arch  # noqa: E402
+from repro_torch.launch.dryrun import _GradRecorder  # noqa: E402
 from repro_torch.nn.module import tree_leaves, tree_map  # noqa: E402
 from repro_torch.train import AdamW, make_lm_train_step  # noqa: E402
 
@@ -247,17 +248,6 @@ def _launcher_rank(rank, world, port, out, arch="deepseek_moe_16b", n_micro=2):
                 "blocks": [t.to_local() for t in tree_leaves(res.params)],
                 "split": [next((p.dim for p in t.placements if p.is_shard()), None) for t in tree_leaves(res.params)]},
                out.format(rank))
-
-
-class _GradRecorder:
-    """An optimizer that keeps the gradients it is given and updates
-    nothing."""
-
-    grads = None
-
-    def update(self, grads, state, params):
-        self.grads = grads
-        return params, state, {}
 
 
 def _grads_rank(rank, world, store, arch, out):
@@ -481,7 +471,8 @@ def test_gradients_on_a_2x2_mesh_equal_one_process(arch, tmp_path):
     gathered on each of the four ranks, against one process's: within 1e-5
     of each leaf's largest. Mamba2's and Hymba's scans and Hymba's
     attention run block by block over the batch and the heads, and so does
-    MLA's attention, whose shared RoPE key has no heads dim."""
+    MLA's attention, whose shared RoPE key has no heads dim. Whisper's and
+    qwen2-vl's (its patch write) are held in ``test_torch_dist_data.py``."""
     out = str(tmp_path / "rank{}.pt")
     _spawn(_grads_rank, 4, str(tmp_path / "store"), arch, out)
     cfg = dataclasses.replace(get_arch(arch).smoke, act_dtype=torch.float32)

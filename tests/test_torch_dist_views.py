@@ -26,6 +26,7 @@ import torch.nn.functional as F  # noqa: E402
 from torch.distributed.tensor import DTensor, Replicate, Shard  # noqa: E402
 
 from repro_torch.dist import mesh_ops  # noqa: E402
+from repro_torch.nn.module import tree_leaves, tree_map  # noqa: E402
 from test_torch_dryrun import check_cell, fake_mesh, small_shapes  # noqa: E402,F401
 
 REFUSAL = "Attempted to flatten multiple dimensions, with dimension {} being sharded."
@@ -413,3 +414,114 @@ def test_touched_functions_equal_the_parent_code_bit_for_bit(name, dtype):
         grads.append([a.grad for a in args if a.requires_grad])
     assert all(torch.equal(a, b) for a, b in zip(*outs))
     assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+# ---------------------------- the decode's slot write and the VLM's patch write
+
+
+def _parent_write_slot(cache, new, slot):
+    """The parent code's slot write: an item assignment into a clone."""
+    out = cache.clone()
+    out[:, slot] = new[:, 0].to(out.dtype)
+    return out
+
+
+def _attention(kind):
+    from repro_torch.nn.attention import Attention, MLAAttention
+
+    if kind == "mla":
+        return MLAAttention(d_model=16, n_q=2, kv_lora=8, qk_nope_dim=4, qk_rope_dim=4, v_head_dim=4)
+    return Attention(d_model=16, n_q=4, n_kv=2, head_dim=8, softcap=20.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,S,window", [("ring", 4, None), ("ring", 6, 3), ("window_1", 1, 1),
+                                           ("mla", 4, None)])
+def test_decode_equals_the_parent_slot_write_bit_for_bit(kind, S, window, dtype, monkeypatch):
+    """``Attention.decode`` past its cache length (the ring buffer wraps;
+    a windowed ring; the window-1 cache) and ``MLAAttention.decode`` past
+    it (the write clamps to the last slot), from a random cache in
+    ``dtype``: each step's output and cache equal the parent code's item
+    assignment, bit for bit, and the cache given is left as it was."""
+    from repro_torch.nn import attention
+
+    mod = _attention(kind)
+    g = torch.Generator().manual_seed(8)
+    p = mod.init(torch.Generator().manual_seed(0))
+    xs = torch.randn(S + 3, 2, 1, 16, generator=g)
+    start = tree_map(lambda t: torch.randn(t.shape, generator=g).to(dtype), mod.init_cache(2, S, dtype))
+    runs = []
+    for write in (attention._write_slot, _parent_write_slot):
+        monkeypatch.setattr(attention, "_write_slot", write)
+        cache, given, outs = start, tree_map(torch.clone, start), []
+        for t in range(S + 3):
+            y, new = mod.decode(p, xs[t], cache, t, window=window)
+            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(cache), tree_leaves(given)))
+            cache, given = new, tree_map(torch.clone, new)
+            outs += [y, *tree_leaves(new)]
+        runs.append(outs)
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_patch_write_equals_the_parent_code_bit_for_bit(dtype):
+    """qwen2-vl's patch embeddings written into the sequence, with a
+    position written twice in a row: the embeddings and the gradients of
+    the table and the patches equal the parent code's in-place write, bit
+    for bit (the later patch kept, as before)."""
+    import dataclasses
+
+    from repro_torch.configs import build_model, get_arch
+    from repro_torch.nn.embed import Embedding
+
+    model = build_model(dataclasses.replace(get_arch("qwen2_vl_7b").smoke, act_dtype=dtype))
+    c = model.cfg
+    g = torch.Generator().manual_seed(9)
+    table = model.init(torch.Generator().manual_seed(0))["embed"]
+    tokens = torch.randint(0, c.vocab, (2, 8), generator=g)
+    patches = torch.randn(2, 3, c.d_model, generator=g)
+    pos = torch.tensor([[1, 5, 1], [0, 7, 3]], dtype=torch.int32)
+    grad = torch.randn(2, 8, c.d_model, generator=g).to(dtype)
+
+    def parent(p, extra):
+        x = Embedding(c.vocab, c.d_model, scale_by_sqrt_d=c.embed_scale)(p, tokens).to(c.act_dtype)
+        x = x.clone()
+        x[torch.arange(2)[:, None], pos.long()] = extra.to(c.act_dtype)
+        return x
+
+    runs = []
+    for f in (lambda p, extra: model._embed({"embed": p}, tokens, extra, pos), parent):
+        p, extra = tree_map(lambda t: t.clone().requires_grad_(), table), patches.clone().requires_grad_()
+        x = f(p, extra)
+        (x.float() * grad.float()).sum().backward()
+        runs.append([x, extra.grad, *(t.grad for t in tree_leaves(p))])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 4, 6), (1, 8, 6)], ids=["kv", "mla"])
+def test_slot_write_on_a_sequence_split_cache_as_on_torch_2_11(shape, fake_mesh, as_torch_2_11):  # noqa: F811
+    """The decode's slot write into a cache split over "data" on the
+    sequence (and over "model" on the KV heads, where it has them): the
+    cache keeps its placements, and rank 0's block equals the plain
+    write's at a slot it holds and is left as it was at one it does not."""
+    from repro_torch.nn.attention import _write_slot
+
+    mesh = _mesh(fake_mesh)
+    g = torch.Generator().manual_seed(10)
+    cache, new = torch.randn(*shape, generator=g), torch.randn(1, 1, *shape[2:], generator=g)
+    heads = len(shape) == 4
+    split = Shard(2) if heads else Replicate()
+    pl, new_pl = (Shard(1), split), (Replicate(), split)
+    for slot in (2, 6):
+        with mesh_ops():
+            out = _write_slot(_put(cache, mesh, pl), _put(new, mesh, new_pl), slot)
+        want = _parent_write_slot(cache, new, slot)[:, :4]
+        assert out.placements == pl and torch.equal(out.to_local(), want[:, :, :2] if heads else want)
+
+
+@pytest.mark.parametrize("family", ["lm", "mla", "whisper"])
+def test_long_decode_cells_run_as_on_torch_2_11(family, fake_mesh, small_shapes, as_torch_2_11):  # noqa: F811
+    """The batch-1 decode cell (caches split over "data" on the sequence)
+    of an attention family, MLA and Whisper's decoder on the fake 2 x 2
+    group under the emulation: the slot writes place without a refusal."""
+    check_cell(_mesh(fake_mesh), family, "long")

@@ -174,8 +174,10 @@ def test_chunked_loss_recomputes_each_chunk_in_backward(monkeypatch):
 
 # ---------------------------------------------------------------- train steps
 
-ARCHS = ["gemma2_2b", "deepseek_moe_16b", "hymba_1_5b", "mamba2_2_7b", "whisper_small"]
+ARCHS = ["gemma2_2b", "deepseek_moe_16b", "hymba_1_5b", "mamba2_2_7b", "whisper_small",
+         "deepseek_v2_lite_16b", "qwen2_vl_7b", "gemma_2b", "gemma2_27b", "phi4_mini_3_8b"]
 B, S, CHUNK = 4, 16, 8
+N_IMG = 4  # qwen2-vl's patch embeddings per row
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,6 +195,10 @@ def _batch(arch, masked=False, seed=3):
     rs = np.random.RandomState(seed)
     if arch == "whisper_small":
         b["frames"] = rs.randn(B, cfg.n_frames, cfg.d_model).astype(np.float32)
+    if arch == "qwen2_vl_7b":  # M-RoPE ids and patch embeddings written into the sequence
+        b["positions"] = rs.randint(0, S, (B, S, 3)).astype(np.int32)
+        b["extra_embeds"] = rs.randn(B, N_IMG, cfg.d_model).astype(np.float32)
+        b["embed_positions"] = np.stack([rs.permutation(S)[:N_IMG] for _ in range(B)]).astype(np.int32)
     if masked:  # a different share of every row: which rows share a micro-batch matters
         b["mask"] = (np.arange(S)[None] < np.array([16, 3, 9, 6])[:, None]).astype(np.float32)
     return b
