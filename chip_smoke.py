@@ -101,11 +101,16 @@ toolkit, this
    (``torch.profiler``); the calls of one prefill in each dtype checked and
    timed by shape, as in 8 (so the flash and SSD time of each prefill), the
    SSD calls also split by pass;
-10. decodes at full width: ``decode_step`` over a 16-token prompt with f32
-   activations and caches against ``__call__`` at the same positions
-   (atol 5e-2, rtol 1e-2), then ``greedy_generate`` with batch 4, prompt 16
-   and 16 new tokens (``launch/serve.py --mode lm``'s defaults), tokens/s
-   on the host clock;
+10. decodes at full width: ``decode_step`` (written into its caches) over
+   a 16-token prompt with f32 activations and caches against
+   ``__call__`` at the same positions (atol 5e-2, rtol 1e-2), then
+   ``greedy_generate`` with batch 4, prompt 16 and 16 new tokens
+   (``launch/serve.py --mode lm``'s defaults), tokens/s on the host clock;
+   then the decode A/B (``decode_ab``): Hymba-1.5B at batch 4 with bf16
+   weights and caches of ``DECODE_AB_LEN`` slots, greedy decoding with the
+   step writing into the loop's caches and with a clone of them passed to
+   each step, in turns: the tokens bit-equal, ms per step and peak memory
+   of each, and the device's busy time a step under ``torch.profiler``;
 11. drives the LM/SSM zoo at full width (``lm_zoo_phase``, ``ZOO``):
    gemma2-2b (2 x 8192, 26 layers: 26 ``flash_attention`` launches, window
    4096 on the even layers, softcap 50, D 256), mamba2-2.7b (2 x 4096, 64
@@ -118,7 +123,8 @@ toolkit, this
    (tokens/s, TFLOP/s from ``launch.analytic``), each distinct kernel call
    checked and timed as in 8, gemma2-2b and mamba2-2.7b split under
    ``torch.profiler``, and decode against ``__call__`` (atol 5e-2, rtol
-   1e-2; gemma2-2b through ``greedy_generate``);
+   1e-2; caches written in place; gemma2-2b through ``greedy_generate``, then
+   gemma2-2b's decode A/B at batch 2, as in 10);
 12. trains LMs on the card (``lm_train_phase``): gemma2-2b at full width
    and depth (2,614,341,888 parameters, seed 0) through
    ``repro_torch.launch.train.main`` (a one-rank NCCL mesh: DTensor
@@ -171,7 +177,10 @@ toolkit, this
    the cases of ``tests/test_torch_dist_data.py`` (``DATA_KINDS``: every
    ``launch.dryrun.DATA_CASES`` case on four gloo ranks of a (2, 2) mesh
    against the same call in one process, within ``DATA_TOL`` of the
-   reference's largest value; one line per kind); then the paper's
+   reference's largest value, the decode steps writing into their caches;
+   one line per kind); every decode cell's outputs and temps within
+   ``DECODE_CELL_SPARE_GIB`` (the step writes into its donated caches) and
+   the cells of ``DECODE_CELL_GIB`` within their totals; then the paper's
    Pix2Pix + YOLOv8 graphs planned once on the host over
    ``h100_submesh_engines()`` (cut points, expected cycle).
 
@@ -1280,7 +1289,104 @@ def hymba_decode_phase(torch, smi, dev, cfg, params):
         f"greedy_generate batch 4, prompt 16, 16 new: {row['tokens_per_s']:.1f} tokens/s, "
         f"{row['ms_per_step']:.1f} ms per decode step (host clock) | {smi}"
     )
+    row["decode_ab"] = decode_ab(torch, smi, "hymba_1_5b", cfg, params, dev)
     return row
+
+
+# the decode A/B at full width and depth (``decode_ab``): batch per arch;
+# caches of decode_32k's length, bf16 weights, activations and caches; the
+# steps of the run under the profiler
+DECODE_AB_B = {"gemma2_2b": 2, "hymba_1_5b": 4}
+DECODE_AB_LEN, DECODE_AB_PROMPT, DECODE_AB_NEW, DECODE_AB_SPLIT = 32768, 8, 8, 4
+
+
+def decode_ab(torch, smi, arch, cfg, params, dev):
+    """Greedy decoding of ``arch`` at full width and depth (the weights
+    ``params`` cast to bf16, bf16 activations and caches of
+    ``DECODE_AB_LEN`` slots, batch ``DECODE_AB_B[arch]``, a
+    ``DECODE_AB_PROMPT``-token prompt fed token by token, then
+    ``DECODE_AB_NEW`` greedy tokens: ``greedy_generate``'s loop), the step
+    writing into the loop's caches, against a loop that keeps its caches and
+    passes the step a clone of them each time (the cost of a step that
+    leaves its caches alone), in turns (kept, in place, in place, kept,
+    after a short warm-up): the generated tokens bit-equal in all four, and
+    each run's ms per step (host clock over the loop, synchronised at its
+    end) and peak memory (``max_memory_allocated`` from a reset just before
+    the loop, the weights and the caches it is given included). Then
+    ``DECODE_AB_SPLIT`` steps in place under ``torch.profiler``
+    (``time_split``): the device's busy time a step against the ms a step
+    of the runs without it. Returns the rows and the split."""
+    import numpy as np
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn.module import tree_leaves, tree_map
+    from repro_torch.train import make_lm_decode_step
+
+    B, n = DECODE_AB_B[arch], DECODE_AB_PROMPT + DECODE_AB_NEW - 1
+    model = build_model(dataclasses.replace(cfg, act_dtype=torch.bfloat16))
+    step = make_lm_decode_step(model)
+    weights = tree_map(lambda t: t.to(torch.bfloat16), params)
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, DECODE_AB_PROMPT)).astype(np.int32)).to(dev)
+
+    def loop(w, caches, steps, keep=False):
+        tok, outs = prompt[:, :1], []
+        for t in range(steps):
+            logits, caches = step(w, tok, tree_map(torch.clone, caches) if keep else caches, t)
+            if t + 1 < DECODE_AB_PROMPT:
+                tok = prompt[:, t + 1 : t + 2]
+            else:
+                tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
+                outs.append(tok)
+        return torch.cat(outs, 1) if outs else None
+
+    def new_caches():
+        return model.init_caches(B, DECODE_AB_LEN, dtype=torch.bfloat16, device=dev)
+
+    def run(keep, steps=n):
+        # handed over, not held here: the loop's rebinding frees each
+        # step's caches once the next ones exist
+        caches = [new_caches()]
+        cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(caches[0]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tokens = loop(weights, caches.pop(), steps, keep)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        return {"keep": keep, "ms_per_step": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+                "cache_bytes": cache_bytes, "tokens": tokens}
+
+    with torch.no_grad():
+        run(False, 4)  # warm-up
+        runs = [run(k) for k in (True, False, False, True)]
+        split = time_split(torch, lambda w, c: loop(w, c, DECODE_AB_SPLIT), weights, new_caches())
+    first = runs[0]["tokens"]
+    if tuple(first.shape) != (B, DECODE_AB_NEW) or not all(torch.equal(r["tokens"], first) for r in runs):
+        raise AssertionError(f"{arch} decode A/B: the step in place and on clones generated different tokens")
+    for r in runs:
+        del r["tokens"]
+    del weights
+    torch.cuda.empty_cache()
+    by = {k: [r for r in runs if r["keep"] == k] for k in (False, True)}
+    print(f"decode A/B, {arch} full width and depth, batch {B}, bf16 weights and caches of {DECODE_AB_LEN} "
+          f"slots ({runs[0]['cache_bytes'] / 2**30:.2f} GiB), prompt {DECODE_AB_PROMPT} + {DECODE_AB_NEW} greedy "
+          f"tokens (bit-equal in all four runs): in place "
+          + ", ".join(f"{r['ms_per_step']:.2f}" for r in by[False]) + " ms per step, peak "
+          + ", ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in by[False]) + " GiB; on a clone of the caches "
+          + ", ".join(f"{r['ms_per_step']:.2f}" for r in by[True]) + " ms per step, peak "
+          + ", ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in by[True]) + f" GiB (host clock) | {smi}")
+    if split:
+        busy = split["busy_ms"] / DECODE_AB_SPLIT
+        kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["by_kind"].items(), key=lambda kv: -kv[1]))
+        print(f"  {DECODE_AB_SPLIT} steps in place under torch.profiler: {split['wall_ms']:.2f} ms wall, device "
+              f"busy {split['busy_ms']:.2f} ms ({kinds}), idle {100 * split['idle_share']:.1f}%; busy {busy:.2f} "
+              f"ms a step against {min(r['ms_per_step'] for r in by[False]):.2f} ms a step without the profiler; "
+              "largest other: " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_other"]))
+        print("  its device ms by op (own kernels): " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_ops"]))
+    else:
+        print("  decode time split: not measured (the profiler recorded no kernel)")
+    return {"runs": runs, "split": split}
 
 
 def distinct_calls(bench, cs, names=REPLACES):
@@ -2272,6 +2378,9 @@ def lm_zoo_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref
             print(f"  decode (f32, {T} steps) vs __call__: max |delta logits| {err:.3e} (atol 5e-2, rtol 1e-2)"
                   f"{gen_s}")
             del model, full, caches, dec
+            if arch in DECODE_AB_B:
+                torch.cuda.empty_cache()
+                row["decode_ab"] = decode_ab(torch, smi, arch, cfg, params, dev)
         del params
         torch.cuda.empty_cache()
         row["seconds"] = time.perf_counter() - t_arch
@@ -2848,7 +2957,16 @@ def dist_phase(torch, smi, dev):
 DRYRUN_CELLS = (("gemma2_2b", "train_4k", False), ("gemma2_2b", "decode_32k", False),
                 ("mamba2_2_7b", "long_500k", False), ("mamba2_2_7b", "prefill_32k", True),
                 ("whisper_small", "prefill_32k", True), ("mamba2_2_7b", "decode_32k", False),
-                ("mamba2_2_7b", "decode_32k", True))
+                ("mamba2_2_7b", "decode_32k", True), ("hymba_1_5b", "decode_32k", False),
+                ("gemma2_2b", "long_500k", True), ("hymba_1_5b", "long_500k", True))
+# a decode cell's step writes into its donated caches: its outputs (the
+# logits) and temps (about one layer's cache at most) stay within this many
+# GiB a rank, where a step that returned new caches came to a whole cache
+# each (26 GiB each for gemma2-2b's decode_32k, whose total bound
+# tests/test_torch_decode_donate.py holds); and these cells' totals within
+# their bounds (from 33.12 GiB)
+DECODE_CELL_SPARE_GIB = 2.0
+DECODE_CELL_GIB = {("hymba_1_5b", "decode_32k", False): 15.0}
 # experiments/torch_hillclimb.py's own example: (arch, shape, variant)
 HILLCLIMB = ("mamba2_2_7b", "train_4k", {"n_micro": 2})
 # smoke-width cells on a fake 2 x 2 ("data", "model") group, where every mesh
@@ -3118,13 +3236,21 @@ def dryrun_phase(smi):
         if r["status"] != "ok":
             raise AssertionError(f"dry run {r['arch']} {r['shape']} {r['mesh']}: {r['status']} {r.get('error')}\n"
                                  f"{r.get('trace', '')}")
+        mem = {k: v / 2**30 for k, v in r["memory_per_device"].items()}
+        if kind == "cell" and r["kind"] == "decode":
+            bound = DECODE_CELL_GIB.get(args, mem["total"])
+            if mem["outputs"] + mem["temps"] > DECODE_CELL_SPARE_GIB or mem["total"] > bound:
+                raise AssertionError(f"dry run {r['arch']} {r['shape']} {r['mesh']}: {mem} GiB a rank, want "
+                                     f"outputs + temps <= {DECODE_CELL_SPARE_GIB} and a total <= {bound} (the "
+                                     "caches written in place)")
         counts = {k: v for k, v in r["collective_counts"].items() if k != "bytes_by_kind"}
         gib = {k: v / 2**30 for k, v in r["collective_counts"]["bytes_by_kind"].items() if v}
         what = f"hillclimb {args[2]}" if kind == "hillclimb" else "dry run"
         print(f"{what} {r['arch']} {r['shape']} {r['mesh']} (predicted for the H100 SXM's peaks): "
               f"compute {r['t_compute_s'] * 1e3:.3f} ms, memory {r['t_memory_s'] * 1e3:.3f} ms, "
               f"collective {r['t_collective_s'] * 1e3:.3f} ms, bottleneck {r['bottleneck']}, per-rank memory "
-              f"{r['memory_per_device']['total'] / 2**30:.2f} GiB, collectives {counts} "
+              f"{mem['total']:.2f} GiB (outputs {mem['outputs']:.3f}, temps {mem['temps']:.3f}), "
+              f"collectives {counts} "
               "(GiB by kind " + ", ".join(f"{k} {v:.3f}" for k, v in gib.items()) + f"), host {seconds:.1f} s")
         rows.append(dict(r, task=kind, host_s=seconds))
     n_data = sum(len(r["cases"]) for r in rows if r["task"] == "data")
@@ -3507,7 +3633,7 @@ def main() -> int:
     del lm_calls
 
     lap("Hymba prefill")
-    print("-- Hymba-1.5B decode at full width (f32 activations and caches)")
+    print("-- Hymba-1.5B decode at full width (f32 activations and caches; the decode A/B in bf16)")
     decode_row = hymba_decode_phase(torch, smi, dev, hcfg, hparams)
     del hparams
     torch.cuda.empty_cache()

@@ -21,4 +21,5 @@ from .sharding import (
     train_shardings,
     tree_shardings,
     tree_shardings_shaped,
+    write_at_,
 )

@@ -21,9 +21,11 @@ tensors without a copy (the dry-run's ``ShapeDtypeStruct``s passed with
 ``in_shardings``), ``on_mesh`` runs a step over DTensors (``jax.jit`` with
 ``in_shardings``) and ``constrain`` is the models' activation constraint
 (``jax.lax.with_sharding_constraint``). ``cache_shardings`` places the
-decode caches, and ``blockwise`` runs an op whose batch-like dims are
+decode caches, ``blockwise`` runs an op whose batch-like dims are
 independent on each rank's block of them (the attention core, the SSD scan
-and its decode step); the JAX package has no counterpart to hold either
+and its decode step) and ``write_at_`` is the donated decode's slot write
+(``dynamic_update_slice`` into a donated buffer), made by the rank whose
+block holds the slot; the JAX package has no counterpart to hold them
 against (GSPMD partitions those ops itself).
 """
 from __future__ import annotations
@@ -479,6 +481,33 @@ def blockwise(fn, labels: str, free: str, *args):
     return local_map(lambda *t: fn(*(RowMajorGrad.apply(x) for x in t)),
                      out_placements=tuple(out_pl) if len(outs) > 1 else out_pl[0], in_placements=tuple(in_pl),
                      in_grad_placements=tuple(grad_pl), device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def write_at_(x, value, dim: int, index: int):
+    """``value`` (size 1 on ``dim``) written into ``x`` at ``index`` of
+    ``dim``, in place: ``jax.lax.dynamic_update_slice`` into a donated
+    buffer. Returns ``x``. Over a DTensor, ``value`` is redistributed to
+    ``x``'s placements with ``dim`` whole, and the rank whose block of
+    ``x`` covers ``index`` (its offset taken over every mesh dim that
+    splits ``dim``) writes it into its local tensor; the other ranks write
+    nothing. The write itself adds no collective. A partial ``x`` has no
+    block to write into: it raises."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    if not isinstance(x, DTensor):
+        x.narrow(dim, index, 1).copy_(value)
+        return x
+    if any(pl.is_partial() for pl in x.placements):
+        raise ValueError(f"cannot write into a partial DTensor ({x.placements})")
+    mesh = x.device_mesh
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    value = value.redistribute(mesh, [Replicate() if pl.is_shard(dim) else pl for pl in x.placements])
+    shape, offset = compute_local_shape_and_global_offset(x.shape, mesh, x.placements)
+    if offset[dim] <= index < offset[dim] + shape[dim]:
+        x.to_local().narrow(dim, index - offset[dim], 1).copy_(value.to_local())
+    return x
 
 
 def _register(op, strategy, schema_info=None):

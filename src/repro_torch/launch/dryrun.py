@@ -179,7 +179,9 @@ def data_outputs(arch: str, kind: str, mesh=None) -> list:
     serving step's parameters by ``default_rules(False, ...)``, its batch
     over the data-like dims, its caches by ``cache_shardings`` (on the
     sequence at batch 1); a train step's by ``train_shardings`` and
-    ``shard_batch``, without ``act_spec``."""
+    ``shard_batch``, without ``act_spec``. Each decode step writes into the
+    caches it is given, as the dry run's decode cell does, and must return
+    them (it raises otherwise)."""
     from ..configs import build_model
     from ..data import shard_batch
     from ..dist.sharding import (batch_sharding, cache_shardings, default_rules, device_put, mesh_ops,
@@ -218,9 +220,12 @@ def data_outputs(arch: str, kind: str, mesh=None) -> list:
             outs = [logits]
         else:
             caches, outs = put(caches, csh), []
+            given = tree_leaves(caches)
             for t in range(DATA_STEPS):
                 token = put(torch.from_numpy(host["tokens"][t]), bsh)
                 logits, caches = model.decode_step(params, token, caches, t)
+                if any(a is not b for a, b in zip(tree_leaves(caches), given, strict=True)):
+                    raise AssertionError(f"{arch} {kind} step {t}: the decode returned other caches than its own")
                 outs.append(logits)
         return [to_global(x) for x in outs + tree_leaves(caches)]
 

@@ -170,7 +170,8 @@ def build_cell(
             n_chips=n_chips,
         )
 
-    # decode: the port's decode_step takes its position as a Python int
+    # decode: the port's decode_step takes its position as a Python int and
+    # writes into the caches it is given (donate_argnums=(2,))
     caches = model.init_caches(B, S, dtype=torch.bfloat16, abstract=True)
     cache_sh = cache_shardings(mesh, caches, rules, seq_sharded=seq_sharded)
     fn = lambda p, token, caches, t: model.decode_step(p, token, caches, t)  # noqa: E731

@@ -200,11 +200,10 @@ class HymbaLM(Module):
         return self._logits(p, x[:, -1:]), tree_stack(caches)
 
     def decode_step(self, p, token, caches, t: int):
+        """Returns (logits, caches): the caches given, written in place."""
         c = self.cfg
         x = self._embed(p, token)
         blk = HymbaBlock(c)
-        new = []
         for i, w in enumerate(c.windows()):
-            x, cache = blk.decode(layer(p["blocks"], i), x, layer(caches, i), t, w)
-            new.append(cache)
-        return self._logits(p, x), tree_stack(new)
+            x, _ = blk.decode(layer(p["blocks"], i), x, layer(caches, i), t, w)
+        return self._logits(p, x), caches

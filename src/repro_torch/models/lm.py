@@ -348,12 +348,11 @@ class TransformerLM(Module):
                                             "scan": tree_stack(caches[self.n_dense :])}
 
     def decode_step(self, p, token, caches, t: int):
-        """token: (B, 1) int; t: position. Returns (logits, caches)."""
+        """token: (B, 1) int; t: position. Returns (logits, caches): the
+        caches given, written in place (each layer's view of the stacked
+        caches)."""
         x = self._embed(p, token)
-        new = []
         for i, (blk, bp, w) in enumerate(self._layers(p)):
             cache = caches["dense"][i] if i < self.n_dense else layer(caches["scan"], i - self.n_dense)
-            x, cache = blk.decode(bp, x, cache, t, w)
-            new.append(cache)
-        x = self._final(p, x)
-        return self._logits(p, x), {"dense": new[: self.n_dense], "scan": tree_stack(new[self.n_dense :])}
+            x, _ = blk.decode(bp, x, cache, t, w)
+        return self._logits(p, self._final(p, x)), caches

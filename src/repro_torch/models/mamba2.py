@@ -146,10 +146,9 @@ class Mamba2LM(Module):
         return self._logits(p, self._final(p, x[:, -1:])), tree_stack(caches)
 
     def decode_step(self, p, token, caches, t=None):
+        """Returns (logits, caches): the caches given, written in place."""
         x = self._embed(p, token)
         blk = Mamba2LayerWrapped(self.cfg)
-        new = []
         for i in range(self.cfg.n_layers):
-            x, cache = blk.decode(layer(p["blocks"], i), x, layer(caches, i))
-            new.append(cache)
-        return self._logits(p, self._final(p, x)), tree_stack(new)
+            x, _ = blk.decode(layer(p["blocks"], i), x, layer(caches, i))
+        return self._logits(p, self._final(p, x)), caches

@@ -216,13 +216,13 @@ class WhisperModel(Module):
         return self._logits(p, x[:, -1:]), tree_stack(caches)
 
     def decode_step(self, p, token, caches, t: int):
+        """Returns (logits, caches): the caches given, the self-attention
+        caches written in place (the cross caches as they are)."""
         c = self.cfg
         pe_idx = min(t, c.max_text - 1)
         x = Embedding(c.vocab, c.d_model)(p["embed"], token).to(c.act_dtype)
         x = x + p["pos_embed"][pe_idx : pe_idx + 1].to(c.act_dtype)
         blk = DecBlock(c)
-        new = []
         for i in range(c.n_dec_layers):
-            x, cache = blk.decode(layer(p["dec_blocks"], i), x, layer(caches, i), t)
-            new.append(cache)
-        return self._logits(p, x), tree_stack(new)
+            x, _ = blk.decode(layer(p["dec_blocks"], i), x, layer(caches, i), t)
+        return self._logits(p, x), caches

@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from ..dist.sharding import blockwise
+from ..dist.sharding import blockwise, write_at_
 from ..kernels import grad_route
 from ..kernels.attention import ops as attention_ops
 from .linear import MultiLinear, OutputLinear
@@ -93,13 +93,11 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, window, scale, softcap, chunk):
 
 
 def _write_slot(cache, new, slot: int):
-    """``cache`` (B, S, ...) with ``new`` (B, 1, ...) written at ``slot`` of
-    its sequence dim, out of place (``jax.lax.dynamic_update_slice``): a
-    select against the slot's mask, so a DTensor cache split over the
-    sequence is written on the rank that holds the slot (an item assignment
-    into its clone writes nothing there)."""
-    at = torch.arange(cache.shape[1], device=new.device) == slot
-    return torch.where(at.view(1, -1, *(1,) * (cache.dim() - 2)), new.to(cache.dtype), cache)
+    """``new`` (B, 1, ...) written into ``cache`` (B, S, ...) at ``slot`` of
+    its sequence dim, in place (``jax.lax.dynamic_update_slice`` into the
+    JAX cell's donated cache): returns ``cache``. On a DTensor split over
+    the sequence the rank that holds the slot writes it (``dist.write_at_``)."""
+    return write_at_(cache, new.to(cache.dtype), 1, slot)
 
 
 def _arange(S, device):
@@ -229,10 +227,11 @@ class Attention(Module):
         return self.init_cache(batch, max_len, dtype, "meta")
 
     def decode(self, p, x, cache, t: int, window=None):
-        """x: (B,1,d); t: index of the new token. Returns (y, cache); the
-        cache given is not modified (a new one is returned, as in JAX). The
-        cache is a ring buffer of its own length: a decode at t >= its
-        length overwrites slot t % length, as the JAX package's does."""
+        """x: (B,1,d); t: index of the new token. Returns (y, cache): the
+        new token is written into the cache given, which is returned (the
+        JAX cell donates its cache and updates it in place). The cache is a
+        ring buffer of its own length: a decode at t >= its length
+        overwrites slot t % length, as the JAX package's does."""
         B = x.shape[0]
         dev = x.device
         pos = torch.full((B, 1), t, dtype=torch.int32, device=dev)
@@ -240,12 +239,11 @@ class Attention(Module):
             pos = pos[..., None].expand(B, 1, 3)
         q, k_new, v_new = self._qkv(p, x, pos)
         S = cache["k"].shape[1]
+        slot = t % S  # full cache: S >= max_len so slot == t
+        k, v = _write_slot(cache["k"], k_new, slot), _write_slot(cache["v"], v_new, slot)
         if S == 1:  # degenerate: window-1 cache
-            k, v = k_new.to(cache["k"].dtype), v_new.to(cache["v"].dtype)
             k_pos = torch.full((1, 1), t, dtype=torch.int32, device=dev)
         else:
-            slot = t % S  # full cache: S >= max_len so slot == t
-            k, v = _write_slot(cache["k"], k_new, slot), _write_slot(cache["v"], v_new, slot)
             base = torch.arange(S, dtype=torch.int32, device=dev)
             # ring buffer: absolute position of each slot given current t
             k_pos = torch.where(base <= slot, t - (slot - base), t - (S - (base - slot)))[None, :]
@@ -367,8 +365,9 @@ class MLAAttention(Module):
         return self.init_cache(batch, max_len, dtype, "meta")
 
     def decode(self, p, x, cache, t: int, window=None):
-        """x: (B,1,d). The new latents go to slot min(t, S - 1), as
-        ``jax.lax.dynamic_update_slice`` clamps its start index."""
+        """x: (B,1,d). The new latents are written into the cache given, at
+        slot min(t, S - 1), as ``jax.lax.dynamic_update_slice`` clamps its
+        start index; the cache is returned."""
         B = x.shape[0]
         pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
         q_nope, q_rope = self._q(p, x, pos)

@@ -160,7 +160,10 @@ def make_lm_train_step(model, optimizer, aux_weight: float = 0.01, n_micro: int 
 
 
 def make_lm_decode_step(model):
-    """One serving decode step: (params, token, caches, t) -> (logits, caches)."""
+    """One serving decode step: (params, token, caches, t) -> (logits,
+    caches). The step writes the new token into the caches it is given and
+    returns them (the JAX cell's ``donate_argnums=(2,)``): the caller's
+    caches are overwritten; a caller that keeps them passes a clone."""
 
     @torch.no_grad()
     def decode_step(params, token, caches, t):
@@ -184,7 +187,8 @@ def greedy_generate(model, params, prompt, steps: int, max_len: int, cache_dtype
     """Reference sampling loop: the prompt fed one token at a time through
     ``decode_step``, then ``steps`` greedy tokens. prompt (B, S) int ->
     (B, steps). A Whisper model decodes against its zero cross caches (no
-    audio is encoded), as the JAX package's loop does."""
+    audio is encoded), as the JAX package's loop does. Each step writes
+    into the loop's own caches."""
     B, S = prompt.shape
     caches = model.init_caches(B, max_len, dtype=cache_dtype, device=prompt.device)
     tok = prompt[:, :1]

@@ -14,14 +14,16 @@ f32 caches, from the parameters of one seed and inputs drawn with numpy:
 - long: the same steps at B 1 with the caches split over "data" on the
   sequence (``cache_shardings(seq_sharded=True)``, the dry run's
   ``long`` / ``long_500k`` layout), where the decode writes its slot on
-  the rank that holds it;
+  the rank that holds it (and gemma2-2b's on eight ranks of a (2, 2, 2)
+  mesh, the sequence split over "pod" and "data");
 - train: one step's loss and gradients for Whisper and for qwen2-vl with
   its M-RoPE ids and patch embeddings (no ``act_spec``), the parameters
   placed by ``train_shardings`` (the other families' gradients:
   ``test_torch_dist_ranks.py::test_gradients_on_a_2x2_mesh_equal_one_process``).
 
-Each output (the logits of every step, every cache leaf, the loss, every
-gradient) is gathered whole on every rank and must lie within
+The decode steps donate their caches and must return the ones they were
+given (``data_outputs`` raises otherwise). Each output (the logits of every
+step, every cache leaf, the loss, every gradient) is gathered whole on every rank and must lie within
 ``DATA_TOL`` (1e-5) of the reference leaf's largest magnitude. The ranks
 run every family of a kind in one spawn and save what each gave (or the
 traceback it raised); the cases read it through a module-scoped fixture.
@@ -51,6 +53,17 @@ def _data_rank(rank, world, store, kind, out):
     try:
         torch.save(data_rank(kind, init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))),
                    out.format(rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def _long_3d_rank(rank, world, store, arch, out):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    _join(rank, world, store)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
+        torch.save(data_outputs(arch, "long", mesh), out.format(rank))
     finally:
         dist.destroy_process_group()
 
@@ -90,4 +103,19 @@ def test_sharded_step_equals_one_process(arch, kind, ranks):
         res = got[arch]
         assert not isinstance(res, str), f"rank {r} raised:\n{res}"
         err = data_error(res, want)
+        assert err <= DATA_TOL, f"rank {r}: {err:.3e} of the largest reference value (bound {DATA_TOL})"
+
+
+def test_long_decode_on_a_2x2x2_mesh_equals_one_process(tmp_path):
+    """gemma2-2b's batch-1 decode on eight gloo ranks of a (2, 2, 2)
+    ("pod", "data", "model") mesh, the 2 x 16 x 16 layout: the caches split
+    on the sequence over "pod" and "data" (two slots a rank), so each
+    donated slot write lands on the one rank of four whose block, offset
+    over both mesh dims, holds it; every output within ``DATA_TOL`` of one
+    process's."""
+    out = str(tmp_path / "rank{}.pt")
+    _spawn(_long_3d_rank, 8, str(tmp_path / "store"), "gemma2_2b", out)
+    want = data_outputs("gemma2_2b", "long")
+    for r in range(8):
+        err = data_error(torch.load(out.format(r)), want)
         assert err <= DATA_TOL, f"rank {r}: {err:.3e} of the largest reference value (bound {DATA_TOL})"

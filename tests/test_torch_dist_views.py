@@ -441,8 +441,9 @@ def test_decode_equals_the_parent_slot_write_bit_for_bit(kind, S, window, dtype,
     """``Attention.decode`` past its cache length (the ring buffer wraps;
     a windowed ring; the window-1 cache) and ``MLAAttention.decode`` past
     it (the write clamps to the last slot), from a random cache in
-    ``dtype``: each step's output and cache equal the parent code's item
-    assignment, bit for bit, and the cache given is left as it was."""
+    ``dtype``: each step's output and cache equal those of the parent
+    code's item assignment into a clone, bit for bit, and the cache
+    returned is the one given, written in place."""
     from repro_torch.nn import attention
 
     mod = _attention(kind)
@@ -453,12 +454,13 @@ def test_decode_equals_the_parent_slot_write_bit_for_bit(kind, S, window, dtype,
     runs = []
     for write in (attention._write_slot, _parent_write_slot):
         monkeypatch.setattr(attention, "_write_slot", write)
-        cache, given, outs = start, tree_map(torch.clone, start), []
+        cache, outs = tree_map(torch.clone, start), []
         for t in range(S + 3):
             y, new = mod.decode(p, xs[t], cache, t, window=window)
-            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(cache), tree_leaves(given)))
-            cache, given = new, tree_map(torch.clone, new)
-            outs += [y, *tree_leaves(new)]
+            in_place = all(a is b for a, b in zip(tree_leaves(new), tree_leaves(cache), strict=True))
+            assert in_place == (write is not _parent_write_slot)
+            cache = new
+            outs += [y, *map(torch.clone, tree_leaves(new))]
         runs.append(outs)
     assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(*runs))
 
@@ -498,25 +500,36 @@ def test_patch_write_equals_the_parent_code_bit_for_bit(dtype):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-@pytest.mark.parametrize("shape", [(1, 8, 4, 6), (1, 8, 6)], ids=["kv", "mla"])
-def test_slot_write_on_a_sequence_split_cache_as_on_torch_2_11(shape, fake_mesh, as_torch_2_11):  # noqa: F811
-    """The decode's slot write into a cache split over "data" on the
-    sequence (and over "model" on the KV heads, where it has them): the
-    cache keeps its placements, and rank 0's block equals the plain
-    write's at a slot it holds and is left as it was at one it does not."""
+@pytest.mark.parametrize("mesh_shape,shape", [((2, 2), (1, 8, 4, 6)), ((2, 2), (1, 8, 6)),
+                                              ((2, 2, 2), (1, 8, 4, 6))], ids=["kv", "mla", "kv-pod-and-data"])
+def test_slot_write_on_a_sequence_split_cache_as_on_torch_2_11(mesh_shape, shape, fake_mesh,  # noqa: F811
+                                                              as_torch_2_11):
+    """The decode's slot write (``_write_slot``, through ``dist.write_at_``)
+    into a cache split on the sequence over "data" (over "pod" and "data"
+    on the 2 x 2 x 2 group, the batch-1 layout of the 2 x 16 x 16 mesh) and
+    over "model" on the KV heads, where it has them: the cache given comes
+    back, written in place, with its placements, and no collective is
+    counted; rank 0's block equals the parent code's write at a slot it
+    holds and is left as it was at one it does not."""
+    from repro_torch.launch.roofline import RankCounter
     from repro_torch.nn.attention import _write_slot
 
-    mesh = _mesh(fake_mesh)
+    names = ("pod", "data", "model")[-len(mesh_shape):]
+    mesh = fake_mesh(mesh_shape, names)
     g = torch.Generator().manual_seed(10)
     cache, new = torch.randn(*shape, generator=g), torch.randn(1, 1, *shape[2:], generator=g)
     heads = len(shape) == 4
     split = Shard(2) if heads else Replicate()
-    pl, new_pl = (Shard(1), split), (Replicate(), split)
-    for slot in (2, 6):
-        with mesh_ops():
-            out = _write_slot(_put(cache, mesh, pl), _put(new, mesh, new_pl), slot)
-        want = _parent_write_slot(cache, new, slot)[:, :4]
-        assert out.placements == pl and torch.equal(out.to_local(), want[:, :, :2] if heads else want)
+    pl = (Shard(1),) * (len(mesh_shape) - 1) + (split,)
+    new_pl = (Replicate(),) * (len(mesh_shape) - 1) + (split,)
+    held = shape[1] // (2 ** (len(mesh_shape) - 1))  # rank 0 holds slots [0, held)
+    for slot in (held - 1, held):
+        given = _put(cache, mesh, pl)
+        with mesh_ops(), RankCounter() as counter:
+            out = _write_slot(given, _put(new, mesh, new_pl), slot)
+        want = _parent_write_slot(cache, new, slot)[:, :held]
+        assert out is given and out.placements == pl and sum(counter.collective_counts.values()) == 0
+        assert torch.equal(out.to_local(), want[:, :, :2] if heads else want)
 
 
 @pytest.mark.parametrize("family", ["lm", "mla", "whisper"])
