@@ -101,16 +101,21 @@ toolkit, this
    (``torch.profiler``); the calls of one prefill in each dtype checked and
    timed by shape, as in 8 (so the flash and SSD time of each prefill), the
    SSD calls also split by pass;
-10. decodes at full width: ``decode_step`` (written into its caches) over
+10. decodes at full width: the captured decode step
+   (``make_lm_decode_step``: one CUDA graph, replayed for every token,
+   written into its caches; ``check_captured``) over
    a 16-token prompt with f32 activations and caches against
    ``__call__`` at the same positions (atol 5e-2, rtol 1e-2), then
    ``greedy_generate`` with batch 4, prompt 16 and 16 new tokens
    (``launch/serve.py --mode lm``'s defaults), tokens/s on the host clock;
    then the decode A/B (``decode_ab``): Hymba-1.5B at batch 4 with bf16
    weights and caches of ``DECODE_AB_LEN`` slots, greedy decoding with the
-   step writing into the loop's caches and with a clone of them passed to
-   each step, in turns: the tokens bit-equal, ms per step and peak memory
-   of each, and the device's busy time a step under ``torch.profiler``;
+   eager step and the captured one (one CUDA-graph replay a token), both
+   writing into the loop's caches, in turns: the tokens bit-equal, ms per
+   step and peak memory of each with the capture outside the clock, the
+   device's busy time a step and top ops under ``torch.profiler``, and no
+   op of a step making a tensor of a layer's cache size
+   (``cache_copies``);
 11. drives the LM/SSM zoo at full width (``lm_zoo_phase``, ``ZOO``):
    gemma2-2b (2 x 8192, 26 layers: 26 ``flash_attention`` launches, window
    4096 on the even layers, softcap 50, D 256), mamba2-2.7b (2 x 4096, 64
@@ -123,7 +128,8 @@ toolkit, this
    (tokens/s, TFLOP/s from ``launch.analytic``), each distinct kernel call
    checked and timed as in 8, gemma2-2b and mamba2-2.7b split under
    ``torch.profiler``, and decode against ``__call__`` (atol 5e-2, rtol
-   1e-2; caches written in place; gemma2-2b through ``greedy_generate``, then
+   1e-2; the captured step, caches written in place; gemma2-2b through
+   ``greedy_generate``, then
    gemma2-2b's decode A/B at batch 2, as in 10);
 12. trains LMs on the card (``lm_train_phase``): gemma2-2b at full width
    and depth (2,614,341,888 parameters, seed 0) through
@@ -1249,6 +1255,14 @@ def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, 
     return cfg, params, launches, calls, rows
 
 
+def check_captured(step, count, what):
+    """``step`` (``make_lm_decode_step``'s) ran ``count`` decode steps as
+    replays of one CUDA graph, captured once for the one cache set."""
+    replays = [g.replays for g in step.graphs.values()]
+    if replays != [count]:
+        raise AssertionError(f"{what}: {len(replays)} CUDA graphs replayed {replays} times, not one {count} times")
+
+
 def hymba_decode_phase(torch, smi, dev, cfg, params):
     """decode_step over a 16-token prompt (f32 activations and caches)
     against __call__ at the same positions, then greedy_generate with
@@ -1271,6 +1285,7 @@ def hymba_decode_phase(torch, smi, dev, cfg, params):
         outs.append(lg)
     dec = torch.cat(outs, 1)
     torch.cuda.synchronize()
+    check_captured(step, 16, "hymba-1.5b decode")
     err = (dec - full).abs().max().item()
     torch.testing.assert_close(dec, full, atol=5e-2, rtol=1e-2)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)).to(dev)
@@ -1285,7 +1300,8 @@ def hymba_decode_phase(torch, smi, dev, cfg, params):
     row = {"decode_vs_call_max_abs_err": err, "generate_wall_s": wall, "tokens_per_s": 4 * 16 / wall,
            "ms_per_step": wall * 1e3 / 31}
     print(
-        f"decode (f32, 16 tokens, batch 2) vs __call__: max |delta logits| {err:.3e} (atol 5e-2, rtol 1e-2); "
+        f"decode (f32, 16 tokens, batch 2, one CUDA graph replayed 16 times) vs __call__: max |delta logits| "
+        f"{err:.3e} (atol 5e-2, rtol 1e-2); "
         f"greedy_generate batch 4, prompt 16, 16 new: {row['tokens_per_s']:.1f} tokens/s, "
         f"{row['ms_per_step']:.1f} ms per decode step (host clock) | {smi}"
     )
@@ -1300,22 +1316,58 @@ DECODE_AB_B = {"gemma2_2b": 2, "hymba_1_5b": 4}
 DECODE_AB_LEN, DECODE_AB_PROMPT, DECODE_AB_NEW, DECODE_AB_SPLIT = 32768, 8, 8, 4
 
 
+def cache_copies(torch, limit):
+    """A ``TorchDispatchMode`` whose ``rows`` count, while it is entered,
+    every op whose output is a new tensor (not a view of its inputs nor an
+    in-place write into them) of ``limit`` bytes or more, by op, shape and
+    the ``repro_torch`` lines that called it: where a decode step copies a
+    cache."""
+    import traceback
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class CacheCopies(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = {x.untyped_storage().data_ptr() for x in tree_leaves((args, kwargs)) if isinstance(x, torch.Tensor)}
+            for o in tree_leaves(out):
+                if isinstance(o, torch.Tensor) and o.nbytes >= limit and o.untyped_storage().data_ptr() not in ins:
+                    where = [f"{f.filename.split('repro_torch/')[-1]}:{f.lineno}" for f in traceback.extract_stack()
+                             if "repro_torch" in f.filename][-2:]
+                    key = f"{func} {tuple(o.shape)} at {' <- '.join(where[::-1])}"
+                    self.rows[key] = self.rows.get(key, 0) + 1
+            return out
+
+    mode = CacheCopies()
+    mode.rows = {}
+    return mode
+
+
 def decode_ab(torch, smi, arch, cfg, params, dev):
     """Greedy decoding of ``arch`` at full width and depth (the weights
     ``params`` cast to bf16, bf16 activations and caches of
     ``DECODE_AB_LEN`` slots, batch ``DECODE_AB_B[arch]``, a
     ``DECODE_AB_PROMPT``-token prompt fed token by token, then
-    ``DECODE_AB_NEW`` greedy tokens: ``greedy_generate``'s loop), the step
-    writing into the loop's caches, against a loop that keeps its caches and
-    passes the step a clone of them each time (the cost of a step that
-    leaves its caches alone), in turns (kept, in place, in place, kept,
-    after a short warm-up): the generated tokens bit-equal in all four, and
-    each run's ms per step (host clock over the loop, synchronised at its
-    end) and peak memory (``max_memory_allocated`` from a reset just before
-    the loop, the weights and the caches it is given included). Then
-    ``DECODE_AB_SPLIT`` steps in place under ``torch.profiler``
-    (``time_split``): the device's busy time a step against the ms a step
-    of the runs without it. Returns the rows and the split."""
+    ``DECODE_AB_NEW`` greedy tokens: ``greedy_generate``'s loop), the eager
+    ``model.decode_step`` against the captured step
+    (``make_lm_decode_step``: the step captured into one CUDA graph per
+    cache set and replayed for every token), both writing into the loop's
+    caches, in turns (eager, captured, captured, eager, after a short
+    warm-up of each): the generated tokens bit-equal in all four; each
+    captured run replays a graph at every step and captures at most one
+    (caches of one size come back at one address, so the capture at the
+    warm-up run's first step serves them all: its warm-up on scratch
+    caches, then the capture, timed and its peak taken). Each run's first
+    step is taken before its clock starts and reported apart; then ms per step over the other steps (host clock,
+    synchronised at its end) and the peak memory of those steps
+    (``max_memory_allocated`` from a reset after the first, the weights and
+    the caches included). Then ``DECODE_AB_SPLIT`` steps of each under
+    ``torch.profiler`` (``time_split``, the captured step's graph captured
+    before): the device's busy time a step, its idle share, its top ops
+    and kernels; and one eager step under ``cache_copies``: the phase
+    fails if an op of the step makes a new tensor of one layer's KV cache
+    size or more. Returns the rows and the splits."""
     import numpy as np
 
     from repro_torch.configs import build_model
@@ -1324,69 +1376,108 @@ def decode_ab(torch, smi, arch, cfg, params, dev):
 
     B, n = DECODE_AB_B[arch], DECODE_AB_PROMPT + DECODE_AB_NEW - 1
     model = build_model(dataclasses.replace(cfg, act_dtype=torch.bfloat16))
-    step = make_lm_decode_step(model)
+    steps = {"eager": torch.no_grad()(model.decode_step), "captured": make_lm_decode_step(model)}
+    captured = steps["captured"]
     weights = tree_map(lambda t: t.to(torch.bfloat16), params)
     rng = np.random.default_rng(5)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, DECODE_AB_PROMPT)).astype(np.int32)).to(dev)
 
-    def loop(w, caches, steps, keep=False):
+    def loop(step, w, caches, count, first=None):
         tok, outs = prompt[:, :1], []
-        for t in range(steps):
-            logits, caches = step(w, tok, tree_map(torch.clone, caches) if keep else caches, t)
+        for t in range(count):
+            logits, caches = step(w, tok, caches, t)
             if t + 1 < DECODE_AB_PROMPT:
                 tok = prompt[:, t + 1 : t + 2]
             else:
                 tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
                 outs.append(tok)
+            if t == 0 and first is not None:
+                first()
         return torch.cat(outs, 1) if outs else None
 
     def new_caches():
         return model.init_caches(B, DECODE_AB_LEN, dtype=torch.bfloat16, device=dev)
 
-    def run(keep, steps=n):
-        # handed over, not held here: the loop's rebinding frees each
-        # step's caches once the next ones exist
+    def replays():
+        return sum(g.replays for g in captured.graphs.values())
+
+    def run(name, count=n):
+        # handed over, not held here: the loop's caches are the only reference
         caches = [new_caches()]
         cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(caches[0]))
+        graphs, replayed = len(captured.graphs), replays()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        tokens = loop(weights, caches.pop(), steps, keep)
+        mark = {"t0": time.perf_counter()}
+
+        def first():
+            torch.cuda.synchronize()
+            mark["first_s"] = time.perf_counter() - mark["t0"]
+            mark["first_peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            mark["t1"] = time.perf_counter()
+
+        tokens = loop(steps[name], weights, caches.pop(), count, first)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / steps
-        return {"keep": keep, "ms_per_step": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+        ms = (time.perf_counter() - mark["t1"]) * 1e3 / (count - 1)
+        if name == "captured" and (replays() - replayed != count or len(captured.graphs) - graphs > 1):
+            raise AssertionError(f"{arch} decode A/B: the captured run replayed {replays() - replayed} of {count} "
+                                 f"steps with {len(captured.graphs) - graphs} new captures")
+        return {"step": name, "ms_per_step": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+                "first_step_s": mark["first_s"], "first_step_peak_bytes": mark["first_peak"],
                 "cache_bytes": cache_bytes, "tokens": tokens}
 
     with torch.no_grad():
-        run(False, 4)  # warm-up
-        runs = [run(k) for k in (True, False, False, True)]
-        split = time_split(torch, lambda w, c: loop(w, c, DECODE_AB_SPLIT), weights, new_caches())
+        warm = {name: run(name, 4) for name in steps}  # the captured step's capture at its first step
+        runs = [run(k) for k in ("eager", "captured", "captured", "eager")]
+        splits = {"eager": time_split(torch, lambda w, c: loop(steps["eager"], w, c, DECODE_AB_SPLIT), weights,
+                                      new_caches())}
+        caches = new_caches()
+        loop(captured, weights, caches, 1)  # its capture, outside the profile
+        splits["captured"] = time_split(torch, lambda w, c: loop(captured, w, c, DECODE_AB_SPLIT), weights, caches)
+        layer_bytes = min(a.nbytes // a.shape[0] for a in tree_leaves(caches) if DECODE_AB_LEN in a.shape)
+        with cache_copies(torch, layer_bytes) as copies:
+            steps["eager"](weights, prompt[:, :1], caches, 0)
+        del caches
     first = runs[0]["tokens"]
     if tuple(first.shape) != (B, DECODE_AB_NEW) or not all(torch.equal(r["tokens"], first) for r in runs):
-        raise AssertionError(f"{arch} decode A/B: the step in place and on clones generated different tokens")
-    for r in runs:
-        del r["tokens"]
-    del weights
+        raise AssertionError(f"{arch} decode A/B: the eager and captured steps generated different tokens")
+    for r in runs + list(warm.values()):
+        r.pop("tokens")
+    graphs = len(captured.graphs)
+    del weights, steps, captured
     torch.cuda.empty_cache()
-    by = {k: [r for r in runs if r["keep"] == k] for k in (False, True)}
+    by = {k: [r for r in runs if r["step"] == k] for k in ("eager", "captured")}
     print(f"decode A/B, {arch} full width and depth, batch {B}, bf16 weights and caches of {DECODE_AB_LEN} "
           f"slots ({runs[0]['cache_bytes'] / 2**30:.2f} GiB), prompt {DECODE_AB_PROMPT} + {DECODE_AB_NEW} greedy "
-          f"tokens (bit-equal in all four runs): in place "
-          + ", ".join(f"{r['ms_per_step']:.2f}" for r in by[False]) + " ms per step, peak "
-          + ", ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in by[False]) + " GiB; on a clone of the caches "
-          + ", ".join(f"{r['ms_per_step']:.2f}" for r in by[True]) + " ms per step, peak "
-          + ", ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in by[True]) + f" GiB (host clock) | {smi}")
-    if split:
+          f"tokens (bit-equal in all four runs), both in place: eager "
+          + ", ".join(f"{r['ms_per_step']:.2f}" for r in by["eager"]) + " ms per step, peak "
+          + ", ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in by["eager"]) + " GiB; captured (one CUDA-graph "
+          "replay a step) " + ", ".join(f"{r['ms_per_step']:.2f}" for r in by["captured"]) + " ms per step, peak "
+          + ", ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in by["captured"]) + " GiB (host clock, steps 2 to "
+          f"{n}); first step eager " + ", ".join(f"{r['first_step_s']:.2f}" for r in by["eager"]) + " s, captured "
+          + ", ".join(f"{r['first_step_s']:.2f}" for r in by["captured"]) + f" s; {graphs} graph(s) captured in "
+          f"all (caches at a captured address replay its graph), the capture at the warm-up run's first step: "
+          f"{warm['captured']['first_step_s']:.2f} s, peak {warm['captured']['first_step_peak_bytes'] / 2**30:.2f} "
+          f"GiB (its scratch caches included) | {smi}")
+    for name, split in splits.items():
+        if not split:
+            print(f"  {name}: decode time split not measured (the profiler recorded no kernel)")
+            continue
         busy = split["busy_ms"] / DECODE_AB_SPLIT
         kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["by_kind"].items(), key=lambda kv: -kv[1]))
-        print(f"  {DECODE_AB_SPLIT} steps in place under torch.profiler: {split['wall_ms']:.2f} ms wall, device "
+        print(f"  {name}, {DECODE_AB_SPLIT} steps under torch.profiler: {split['wall_ms']:.2f} ms wall, device "
               f"busy {split['busy_ms']:.2f} ms ({kinds}), idle {100 * split['idle_share']:.1f}%; busy {busy:.2f} "
-              f"ms a step against {min(r['ms_per_step'] for r in by[False]):.2f} ms a step without the profiler; "
-              "largest other: " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_other"]))
-        print("  its device ms by op (own kernels): " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_ops"]))
-    else:
-        print("  decode time split: not measured (the profiler recorded no kernel)")
-    return {"runs": runs, "split": split}
+              f"ms a step against {min(r['ms_per_step'] for r in by[name]):.2f} ms a step without the profiler; "
+              "largest other kernels: " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_other"]) + f" | {smi}")
+        if split["top_ops"]:
+            print("    its device ms by op (own kernels): " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_ops"]))
+    print(f"  one eager step, new tensors of a layer's KV cache ({layer_bytes / 2**20:.0f} MiB) or more: "
+          + ("; ".join(f"x{c} {k}" for k, c in copies.rows.items()) or "none"))
+    if copies.rows:
+        raise AssertionError(f"{arch} decode: the step copies a cache: {copies.rows}")
+    return {"runs": runs, "splits": splits, "graphs": graphs,
+            "capture": {k: warm["captured"][k] for k in ("first_step_s", "first_step_peak_bytes")}}
 
 
 def distinct_calls(bench, cs, names=REPLACES):
@@ -1618,7 +1709,8 @@ def launcher_phase(torch, smi, dev, ops, want):
        admitted route segment by segment and its frames completed, the
        calibration file written;
     3. ``--traffic poisson --rate 30 --duration 1 --admission``;
-    4. ``--mode lm --arch hymba_1_5b --tokens 4 --batch 2 --prompt-len 8``.
+    4. ``--mode lm --arch hymba_1_5b --tokens 4 --batch 2 --prompt-len 8``:
+       its decode steps one captured CUDA graph, replayed for each token.
 
     Returns the phase's rows."""
     import gc
@@ -1792,12 +1884,24 @@ def launcher_phase(torch, smi, dev, ops, want):
           f"p99 {rep['latency_p99_ms']:.2f} ms, {seconds:.1f} s | {smi}")
     del bundle
 
-    gen, _, seconds = _launch(torch, launch_serve.main, ["--mode", "lm", "--arch", "hymba_1_5b", "--tokens", "4",
-                                                          "--batch", "2", "--prompt-len", "8"])
-    if tuple(gen.shape) != (2, 4) or gen.device.type != "cuda":
-        raise AssertionError(f"--mode lm generated {tuple(gen.shape)} on {gen.device}")
+    from repro_torch.train import steps as train_steps
+
+    made = []
+
+    def recording(model):
+        made.append(real(model))
+        return made[-1]
+
+    with patched(train_steps, "make_lm_decode_step", recording) as real:
+        gen, _, seconds = _launch(torch, launch_serve.main, ["--mode", "lm", "--arch", "hymba_1_5b", "--tokens", "4",
+                                                              "--batch", "2", "--prompt-len", "8"])
+    if tuple(gen.shape) != (2, 4) or gen.device.type != "cuda" or len(made) != 1:
+        raise AssertionError(f"--mode lm generated {tuple(gen.shape)} on {gen.device} through {len(made)} steps")
+    check_captured(made[0], 8 + 4 - 1, "launcher --mode lm")
     rows["lm"] = {"tokens": gen.tolist(), "seconds": seconds}
-    print(f"launcher --mode lm (hymba_1_5b smoke): generated {tuple(gen.shape)} on the card, {seconds:.1f} s")
+    print(f"launcher --mode lm (hymba_1_5b smoke): generated {tuple(gen.shape)} on the card, its 11 decode steps "
+          f"one CUDA graph replayed 11 times, {seconds:.1f} s")
+    del made
     shutil.rmtree(tmp, ignore_errors=True)
     return rows
 
@@ -2370,12 +2474,15 @@ def lm_zoo_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref
                     lg, caches = step(params, seq[:, t : t + 1], caches, t)
                     outs.append(lg)
                 dec = torch.cat(outs, 1)
+                check_captured(step, T, f"{arch} decode")
+                del step
             err = (dec - full).abs().max().item()
             torch.testing.assert_close(dec, full, atol=5e-2, rtol=1e-2)
             row["decode_vs_call_max_abs_err"] = err
             gen_s = (f"; greedy_generate batch {ZOO_B}, prompt 16, 16 new: {row['generate_tokens_per_s']:.1f} "
                      "tokens/s (host clock)") if "generate_tokens_per_s" in row else ""
-            print(f"  decode (f32, {T} steps) vs __call__: max |delta logits| {err:.3e} (atol 5e-2, rtol 1e-2)"
+            print(f"  decode (f32, {T} steps, one CUDA graph replayed {T} times) vs __call__: max |delta logits| "
+                  f"{err:.3e} (atol 5e-2, rtol 1e-2)"
                   f"{gen_s}")
             del model, full, caches, dec
             if arch in DECODE_AB_B:

@@ -62,6 +62,33 @@ def _capture_stream(device: torch.device):
     return _CAPTURE_STREAMS[device.index]
 
 
+def capture_graph(stream, side, run: Callable, what: str):
+    """``run()`` captured into a ``torch.cuda.CUDAGraph`` on the side
+    stream ``side``, into ``stream``'s pool (``_graph_pool``): returns the
+    graph, ``run``'s outputs and the pool's set of graphs, to which the
+    caller adds its ``CapturedGraph``. A capture that fails raises, naming
+    ``what``. capture_begin/end rather than torch.cuda.graph, whose entry
+    also empties the allocator's cache: every later allocation would pay a
+    cudaMalloc again, on the hot path when a capture happens there."""
+    graph = torch.cuda.CUDAGraph()
+    pool, pool_graphs = _graph_pool(stream)
+    torch.cuda.synchronize(stream.device)
+    try:
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out = run()
+            finally:
+                graph.capture_end()
+    except Exception as e:
+        raise RuntimeError(
+            f"CUDA-graph capture of {what} failed (a host sync such as .item() or .cpu(), or a branch on a tensor "
+            f"value, inside it?): {e}"
+        ) from e
+    stream.wait_stream(side)
+    return graph, out, pool_graphs
+
+
 @dataclasses.dataclass(eq=False)  # identity: a pool tracks its graphs in a WeakSet
 class CapturedGraph:
     """One segment captured for one state structure, params and stream."""
@@ -142,24 +169,9 @@ class CapturedSegment:
             self.fn(params, static_state)  # warm-up: first-use work stays out of the graph
         counters = launch_counters()
         before = {pkg: dict(c) for pkg, c in counters.items()}
-        graph = torch.cuda.CUDAGraph()
-        pool, pool_graphs = _graph_pool(stream)
-        # capture_begin/end rather than torch.cuda.graph, whose entry also
-        # empties the allocator's cache: every later allocation would pay
-        # a cudaMalloc again, on the hot path when a capture happens there
-        torch.cuda.synchronize(leaves[0].device)
         try:
-            with torch.cuda.stream(side):
-                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    static_out = self.fn(params, static_state)
-                finally:
-                    graph.capture_end()
-        except Exception as e:
-            raise RuntimeError(
-                f"CUDA-graph capture of segment {self.name} failed (a host sync such as .item() or "
-                f".cpu(), or a branch on a tensor value, inside the segment?): {e}"
-            ) from e
+            graph, static_out, pool_graphs = capture_graph(stream, side, lambda: self.fn(params, static_state),
+                                                           f"segment {self.name}")
         finally:
             launched = {}
             for pkg, c in counters.items():
@@ -167,7 +179,6 @@ class CapturedSegment:
                     if v != before[pkg][k]:
                         launched[k] = v - before[pkg][k]
                 c.update(before[pkg])
-        stream.wait_stream(side)
         ids = {id(t): i for i, t in enumerate(static_in)}
         alias = [ids.get(id(o)) for o in tree_leaves(static_out)]
         captured = CapturedGraph(graph, params, static_in, static_out, alias, launched)

@@ -483,21 +483,26 @@ def blockwise(fn, labels: str, free: str, *args):
                      in_grad_placements=tuple(grad_pl), device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
-def write_at_(x, value, dim: int, index: int):
-    """``value`` (size 1 on ``dim``) written into ``x`` at ``index`` of
-    ``dim``, in place: ``jax.lax.dynamic_update_slice`` into a donated
-    buffer. Returns ``x``. Over a DTensor, ``value`` is redistributed to
-    ``x``'s placements with ``dim`` whole, and the rank whose block of
-    ``x`` covers ``index`` (its offset taken over every mesh dim that
-    splits ``dim``) writes it into its local tensor; the other ranks write
-    nothing. The write itself adds no collective. A partial ``x`` has no
-    block to write into: it raises."""
+def write_at_(x, value, dim: int, index):
+    """``value`` (size 1 on ``dim``) written into ``x`` at ``index`` (a 0-d
+    integer tensor on ``x``'s device) of ``dim``, in place:
+    ``jax.lax.dynamic_update_slice`` at a traced index into a donated
+    buffer. Returns ``x``. Nothing reads ``index`` on the host: a plain
+    ``x`` takes an ``index_copy_``. Over a DTensor, ``value`` is
+    redistributed to ``x``'s placements with ``dim`` whole, and every rank
+    writes into its local block at ``index`` less its block's offset (taken
+    over every mesh dim that splits ``dim``), clamped into the block:
+    ``value`` where the slot is its own, else the slot's current content,
+    so only the rank that holds the slot changes its block. The write adds
+    no collective. A partial ``x`` has no block to write into: it raises."""
     from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
+    if isinstance(index, DTensor):
+        index = index.to_local()
+    index = index.reshape(1).long()
     if not isinstance(x, DTensor):
-        x.narrow(dim, index, 1).copy_(value)
-        return x
+        return x.index_copy_(dim, index, value)
     if any(pl.is_partial() for pl in x.placements):
         raise ValueError(f"cannot write into a partial DTensor ({x.placements})")
     mesh = x.device_mesh
@@ -505,8 +510,12 @@ def write_at_(x, value, dim: int, index: int):
         value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim, run_check=False)
     value = value.redistribute(mesh, [Replicate() if pl.is_shard(dim) else pl for pl in x.placements])
     shape, offset = compute_local_shape_and_global_offset(x.shape, mesh, x.placements)
-    if offset[dim] <= index < offset[dim] + shape[dim]:
-        x.to_local().narrow(dim, index - offset[dim], 1).copy_(value.to_local())
+    if shape[dim] == 0:
+        return x
+    local, here = x.to_local(), index - offset[dim]
+    mine = (here >= 0) & (here < shape[dim])
+    here = here.clamp(0, shape[dim] - 1)
+    local.index_copy_(dim, here, torch.where(mine, value.to_local(), local.index_select(dim, here)))
     return x
 
 

@@ -179,13 +179,14 @@ def data_outputs(arch: str, kind: str, mesh=None) -> list:
     serving step's parameters by ``default_rules(False, ...)``, its batch
     over the data-like dims, its caches by ``cache_shardings`` (on the
     sequence at batch 1); a train step's by ``train_shardings`` and
-    ``shard_batch``, without ``act_spec``. Each decode step writes into the
-    caches it is given, as the dry run's decode cell does, and must return
-    them (it raises otherwise)."""
+    ``shard_batch``, without ``act_spec``. Each decode step takes its
+    position as a 0-d int32 tensor (replicated on ``mesh``) and writes into
+    the caches it is given, as the dry run's decode cell does, and must
+    return them (it raises otherwise)."""
     from ..configs import build_model
     from ..data import shard_batch
-    from ..dist.sharding import (batch_sharding, cache_shardings, default_rules, device_put, mesh_ops,
-                                 on_mesh, to_global, train_shardings, tree_shardings_shaped)
+    from ..dist.sharding import (NamedSharding, P, batch_sharding, cache_shardings, default_rules, device_put,
+                                 mesh_ops, on_mesh, to_global, train_shardings, tree_shardings_shaped)
     from ..nn.module import tree_leaves, tree_map
     from ..train.optimizer import AdamW
     from ..train.steps import make_lm_train_step
@@ -221,9 +222,12 @@ def data_outputs(arch: str, kind: str, mesh=None) -> list:
         else:
             caches, outs = put(caches, csh), []
             given = tree_leaves(caches)
+            rep = None if mesh is None else NamedSharding(mesh, P())
             for t in range(DATA_STEPS):
                 token = put(torch.from_numpy(host["tokens"][t]), bsh)
-                logits, caches = model.decode_step(params, token, caches, t)
+                # the position a replicated int32 scalar, as the dry run's decode cell passes it
+                position = put(torch.tensor(t, dtype=torch.int32), rep)
+                logits, caches = model.decode_step(params, token, caches, position)
                 if any(a is not b for a, b in zip(tree_leaves(caches), given, strict=True)):
                     raise AssertionError(f"{arch} {kind} step {t}: the decode returned other caches than its own")
                 outs.append(logits)

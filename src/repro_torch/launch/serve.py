@@ -27,6 +27,8 @@ names another device.
 ``--mode lm`` serves any architecture of ``configs.ARCH_IDS`` at its
 smoke config (``--arch``, default ``gemma2_2b`` as in the JAX launcher):
 the prompt fed token by token through ``decode_step``, then greedy tokens.
+On the card the step is ``train.make_lm_decode_step``'s: captured into one
+CUDA graph and replayed for every token, as the JAX launcher jits it once.
 ``main(argv)`` takes the arguments as a list, so a program can drive the
 launcher in its own process: streams mode returns the (closed)
 ``ServerBundle``, lm mode the generated tokens.
@@ -210,8 +212,10 @@ def run_lm(args):
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     gen = torch.cat(outs, dim=1)
+    replays = [g.replays for g in decode.graphs.values()]
+    graphs = f", the step {len(replays)} CUDA graph(s) replayed {sum(replays)} times" if replays else ""
     print(f"[serve] arch={args.arch} generated {tuple(gen.shape)} in {dt:.2f}s "
-          f"({args.batch * gen.shape[1] / dt:.1f} tok/s on {device})")
+          f"({args.batch * gen.shape[1] / dt:.1f} tok/s on {device}{graphs})")
     print(gen[:2].cpu())
     return gen
 

@@ -170,12 +170,14 @@ def build_cell(
             n_chips=n_chips,
         )
 
-    # decode: the port's decode_step takes its position as a Python int and
-    # writes into the caches it is given (donate_argnums=(2,))
+    # decode: the position a replicated int32 scalar, as the JAX cell's
+    # _sds((), jnp.int32); the step writes into the caches it is given
+    # (donate_argnums=(2,))
     caches = model.init_caches(B, S, dtype=torch.bfloat16, abstract=True)
     cache_sh = cache_shardings(mesh, caches, rules, seq_sharded=seq_sharded)
     fn = lambda p, token, caches, t: model.decode_step(p, token, caches, t)  # noqa: E731
-    args = (params, abstract_put(_sds((B, 1), torch.int32), bsh), abstract_put(caches, cache_sh), S - 1)
+    args = (params, abstract_put(_sds((B, 1), torch.int32), bsh), abstract_put(caches, cache_sh),
+            abstract_put(_sds((), torch.int32), rep))
     in_sh = (param_sh, bsh, cache_sh, rep)
     return Cell(
         arch=spec.name,

@@ -21,6 +21,7 @@ import torch
 
 from ..dist.sharding import constrain
 from ..nn import MLP, Attention, Embedding, Mamba2Block, Module, RMSNorm, Stacked
+from ..nn.attention import decode_position
 from ..nn.module import checkpointed, layer, tree_map, tree_stack
 
 
@@ -199,9 +200,12 @@ class HymbaLM(Module):
             caches.append(cache)
         return self._logits(p, x[:, -1:]), tree_stack(caches)
 
-    def decode_step(self, p, token, caches, t: int):
-        """Returns (logits, caches): the caches given, written in place."""
+    def decode_step(self, p, token, caches, t):
+        """``t``: an int or a 0-d integer tensor, taken as a 0-d int32
+        tensor on the token's device (``decode_position``). Returns
+        (logits, caches): the caches given, written in place."""
         c = self.cfg
+        t = decode_position(t, token)
         x = self._embed(p, token)
         blk = HymbaBlock(c)
         for i, w in enumerate(c.windows()):

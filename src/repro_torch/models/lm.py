@@ -25,6 +25,7 @@ import torch
 
 from ..dist.sharding import constrain
 from ..nn import MLP, Attention, Embedding, Linear, MLAAttention, MoE, Module, RMSNorm, Stacked
+from ..nn.attention import decode_position
 from ..nn.module import checkpointed, layer, tree_map, tree_stack
 
 
@@ -208,7 +209,7 @@ class LMBlock(Module):
         x, _ = self._ffn(p, self._residual_attn(p, x, h))
         return x, cache
 
-    def decode(self, p, x, cache, t: int, window):
+    def decode(self, p, x, cache, t, window):
         h, cache = self._attn().decode(p["attn"], self._norm(p, "ln_attn", x), cache, t, window=window)
         x, _ = self._ffn(p, self._residual_attn(p, x, h))
         return x, cache
@@ -347,10 +348,12 @@ class TransformerLM(Module):
         return self._logits(p, x[:, -1:]), {"dense": caches[: self.n_dense],
                                             "scan": tree_stack(caches[self.n_dense :])}
 
-    def decode_step(self, p, token, caches, t: int):
-        """token: (B, 1) int; t: position. Returns (logits, caches): the
-        caches given, written in place (each layer's view of the stacked
-        caches)."""
+    def decode_step(self, p, token, caches, t):
+        """token: (B, 1) int; t: position, an int or a 0-d integer tensor,
+        taken as a 0-d int32 tensor on the token's device
+        (``decode_position``). Returns (logits, caches): the caches given,
+        written in place (each layer's view of the stacked caches)."""
+        t = decode_position(t, token)
         x = self._embed(p, token)
         for i, (blk, bp, w) in enumerate(self._layers(p)):
             cache = caches["dense"][i] if i < self.n_dense else layer(caches["scan"], i - self.n_dense)

@@ -146,7 +146,9 @@ class Mamba2LM(Module):
         return self._logits(p, self._final(p, x[:, -1:])), tree_stack(caches)
 
     def decode_step(self, p, token, caches, t=None):
-        """Returns (logits, caches): the caches given, written in place."""
+        """Returns (logits, caches): the caches given, written in place.
+        ``t`` (an int or a 0-d tensor, as the other families take it) is
+        not read: the SSM state carries the position."""
         x = self._embed(p, token)
         blk = Mamba2LayerWrapped(self.cfg)
         for i in range(self.cfg.n_layers):

@@ -19,6 +19,7 @@ from typing import Any
 import torch
 
 from ..nn import MLP, Attention, Embedding, LayerNorm, Module, ParamSpec, Stacked, normal_init
+from ..nn.attention import decode_position
 from ..nn.module import checkpointed, layer, tree_map, tree_stack
 
 
@@ -123,7 +124,7 @@ class DecBlock(Module):
         ck, cv = c.attn().project_kv(p["cross_attn"], enc_out)
         return x, {"self": self_kv, "cross_k": ck.to(cache_dtype), "cross_v": cv.to(cache_dtype)}
 
-    def decode(self, p, x, cache, t: int):
+    def decode(self, p, x, cache, t):
         c = self.cfg
         y, self_kv = c.attn().decode(p["self_attn"], c.norm()(p["ln1"], x), cache["self"], t)
         x = x + y
@@ -215,13 +216,18 @@ class WhisperModel(Module):
             caches.append(cache)
         return self._logits(p, x[:, -1:]), tree_stack(caches)
 
-    def decode_step(self, p, token, caches, t: int):
-        """Returns (logits, caches): the caches given, the self-attention
-        caches written in place (the cross caches as they are)."""
+    def decode_step(self, p, token, caches, t):
+        """``t``: an int or a 0-d integer tensor, taken as a 0-d int32
+        tensor on the token's device (``decode_position``); its position
+        embedding is the row ``min(t, max_text - 1)``, read on the device
+        (``dynamic_slice_in_dim`` in the JAX package). Returns (logits,
+        caches): the caches given, the self-attention caches written in
+        place (the cross caches as they are)."""
         c = self.cfg
-        pe_idx = min(t, c.max_text - 1)
+        t = decode_position(t, token)
+        pe_idx = t.clamp(max=c.max_text - 1).reshape(1)
         x = Embedding(c.vocab, c.d_model)(p["embed"], token).to(c.act_dtype)
-        x = x + p["pos_embed"][pe_idx : pe_idx + 1].to(c.act_dtype)
+        x = x + p["pos_embed"].index_select(0, pe_idx).to(c.act_dtype)
         blk = DecBlock(c)
         for i in range(c.n_dec_layers):
             x, _ = blk.decode(layer(p["dec_blocks"], i), x, layer(caches, i), t)

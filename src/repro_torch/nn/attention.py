@@ -65,13 +65,33 @@ def _sdpa(q, k, v, mask, scale, softcap=None):
     return blockwise(lambda *t: _sdpa_block(*t, scale, softcap), "bqhgd,bkhd,bkhv,bxqk->bqhgv", "bhg", q, k, v, mask)
 
 
+def _scores(q, k):
+    """``einsum("bqhgd,bkhd->bhgqk", q, k)`` as one ``bmm`` per batch row
+    over views of ``k``: (Hk, G·Sq, D) @ (Hk, D, Sk), whose strides cuBLAS
+    takes as they lie. The einsum folds (b, h) into one batch dim, which a
+    (B, Sk, Hk, D) cache cannot view for B > 1, and so copies ``k`` whole."""
+    B, Sq, Hk, G, D = q.shape
+    qh = q.permute(0, 2, 3, 1, 4).reshape(B, Hk, G * Sq, D)
+    return torch.stack([torch.bmm(qb, kb.permute(1, 2, 0)) for qb, kb in zip(qh.unbind(0), k.unbind(0))]).view(
+        B, Hk, G, Sq, -1)
+
+
+def _weighted(probs, v):
+    """``einsum("bhgqk,bkhd->bqhgd", probs, v)`` as one ``bmm`` per batch row
+    over views of ``v`` (``_scores``' counterpart)."""
+    B, Hk, G, Sq, Sk = probs.shape
+    ph = probs.reshape(B, Hk, G * Sq, Sk)
+    out = torch.stack([torch.bmm(pb, vb.transpose(0, 1)) for pb, vb in zip(ph.unbind(0), v.unbind(0))])
+    return out.view(B, Hk, G, Sq, -1).permute(0, 3, 1, 2, 4)
+
+
 def _sdpa_block(q, k, v, mask, scale, softcap):
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
+    scores = _scores(q, k).float() * scale
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
     scores = scores + _mask_bias(mask)[:, :, None, :, :]  # -> (B,1,1,Sq,Sk)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return _weighted(probs.to(v.dtype), v)
 
 
 def effective_chunk(chunk: int, Sq: int, Sk: int, budget: int = 1 << 22) -> int:
@@ -92,12 +112,26 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, window, scale, softcap, chunk):
     return torch.cat(outs, dim=1)
 
 
-def _write_slot(cache, new, slot: int):
-    """``new`` (B, 1, ...) written into ``cache`` (B, S, ...) at ``slot`` of
-    its sequence dim, in place (``jax.lax.dynamic_update_slice`` into the
-    JAX cell's donated cache): returns ``cache``. On a DTensor split over
-    the sequence the rank that holds the slot writes it (``dist.write_at_``)."""
+def _write_slot(cache, new, slot):
+    """``new`` (B, 1, ...) written into ``cache`` (B, S, ...) at ``slot`` (a
+    0-d integer tensor) of its sequence dim, in place
+    (``jax.lax.dynamic_update_slice`` at a traced index into the JAX cell's
+    donated cache): returns ``cache``. On a DTensor split over the sequence
+    only the rank that holds the slot changes its block, with no host read
+    of ``slot`` (``dist.write_at_``)."""
     return write_at_(cache, new.to(cache.dtype), 1, slot)
+
+
+def decode_position(t, like):
+    """A decode step's position ``t`` (an int or a 0-d integer tensor) as a
+    0-d int32 tensor on ``like``'s device: the JAX cell's replicated
+    ``int32`` scalar. The step computes everything else from it on the
+    device, with no host read, so one CUDA graph serves every ``t``."""
+    if not isinstance(t, torch.Tensor):
+        return torch.tensor(t, dtype=torch.int32, device=like.device)
+    if t.device != like.device:
+        t = t.to(like.device)
+    return t if t.dtype == torch.int32 else t.to(torch.int32)
 
 
 def _arange(S, device):
@@ -226,37 +260,42 @@ class Attention(Module):
         """``init_cache``'s tree as ``meta`` tensors."""
         return self.init_cache(batch, max_len, dtype, "meta")
 
-    def decode(self, p, x, cache, t: int, window=None):
-        """x: (B,1,d); t: index of the new token. Returns (y, cache): the
-        new token is written into the cache given, which is returned (the
-        JAX cell donates its cache and updates it in place). The cache is a
-        ring buffer of its own length: a decode at t >= its length
-        overwrites slot t % length, as the JAX package's does."""
+    def decode(self, p, x, cache, t, window=None):
+        """x: (B,1,d); t: index of the new token, a 0-d int32 tensor
+        (``decode_position``). Returns (y, cache): the new token is written
+        into the cache given, which is returned (the JAX cell donates its
+        cache and updates it in place). The cache is a ring buffer of its
+        own length: a decode at t >= its length overwrites slot t % length,
+        as the JAX package's does. Nothing reads ``t`` on the host."""
         B = x.shape[0]
         dev = x.device
-        pos = torch.full((B, 1), t, dtype=torch.int32, device=dev)
+        t = decode_position(t, x)
+        pos = t.expand(B, 1)
         if self.mrope_sections is not None:
             pos = pos[..., None].expand(B, 1, 3)
         q, k_new, v_new = self._qkv(p, x, pos)
         S = cache["k"].shape[1]
         slot = t % S  # full cache: S >= max_len so slot == t
         k, v = _write_slot(cache["k"], k_new, slot), _write_slot(cache["v"], v_new, slot)
+        q_pos = t.reshape(1, 1)
         if S == 1:  # degenerate: window-1 cache
-            k_pos = torch.full((1, 1), t, dtype=torch.int32, device=dev)
+            k_pos = q_pos
         else:
             base = torch.arange(S, dtype=torch.int32, device=dev)
             # ring buffer: absolute position of each slot given current t
             k_pos = torch.where(base <= slot, t - (slot - base), t - (S - (base - slot)))[None, :]
         cache = {"k": k, "v": v}
-        q_pos = torch.full((1, 1), t, dtype=torch.int32, device=dev)
         mask = causal_window_mask(q_pos, k_pos, window) & (k_pos >= 0)[..., None, :]
         out = _sdpa(self._group(q), k.to(q.dtype), v.to(q.dtype), mask[:, None], self._scale, self.softcap)
         return self._out(p, out), cache
 
 
+def _probs(scores, mask, scale, dtype):
+    return torch.softmax(scores.float() * scale + _mask_bias(mask), dim=-1).to(dtype)
+
+
 def _softmax_out(scores, mask, v, eq, scale):
-    scores = scores.float() * scale + _mask_bias(mask)
-    return torch.einsum(eq, torch.softmax(scores, dim=-1).to(v.dtype), v)
+    return torch.einsum(eq, _probs(scores, mask, scale, v.dtype), v)
 
 
 def _mla_block(q_nope, q_rope, k_nope, k_r, v, mask, scale):
@@ -364,22 +403,24 @@ class MLAAttention(Module):
         """``init_cache``'s tree as ``meta`` tensors."""
         return self.init_cache(batch, max_len, dtype, "meta")
 
-    def decode(self, p, x, cache, t: int, window=None):
-        """x: (B,1,d). The new latents are written into the cache given, at
-        slot min(t, S - 1), as ``jax.lax.dynamic_update_slice`` clamps its
-        start index; the cache is returned."""
+    def decode(self, p, x, cache, t, window=None):
+        """x: (B,1,d); t: a 0-d int32 tensor (``decode_position``). The new
+        latents are written into the cache given, at slot min(t, S - 1), as
+        ``jax.lax.dynamic_update_slice`` clamps its start index; the cache
+        is returned. The scores and output read the expanded keys and
+        values as views (``_scores``, ``_weighted``)."""
         B = x.shape[0]
-        pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+        t = decode_position(t, x)
+        pos = t.expand(B, 1)
         q_nope, q_rope = self._q(p, x, pos)
         c_new, kr_new = self._latents(p, x, pos)
         S = cache["c_kv"].shape[1]
-        slot = min(t, S - 1)
+        slot = t.clamp(max=S - 1)
         c_all, kr_all = _write_slot(cache["c_kv"], c_new, slot), _write_slot(cache["k_r"], kr_new, slot)
         cache = {"c_kv": c_all, "k_r": kr_all}
         c_kv, k_r = c_all.to(x.dtype), kr_all.to(x.dtype)
         k_pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-        q_pos = torch.full((1, 1), t, dtype=torch.int32, device=x.device)
-        mask = causal_window_mask(q_pos, k_pos, window)[:, None]  # (1,1,1,S)
+        mask = causal_window_mask(t.reshape(1, 1), k_pos, window)[:, None]  # (1,1,1,S)
         rope_scores = torch.einsum("bqhd,bkd->bhqk", q_rope, k_r)
         if self.absorb:
             # weight absorption: q_nope' = q_nope @ W_uk  -> attend against c_kv
@@ -391,6 +432,6 @@ class MLAAttention(Module):
         else:
             k_nope = self._wuk()(p["wuk"], c_kv)
             v = self._wuv()(p["wuv"], c_kv)
-            scores = torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope) + rope_scores
-            out = _softmax_out(scores, mask, v, "bhqk,bkhd->bqhd", self._scale)
+            scores = _scores(q_nope[:, :, :, None], k_nope)[:, :, 0] + rope_scores
+            out = _weighted(_probs(scores, mask, self._scale, v.dtype)[:, :, None], v)[:, :, :, 0]
         return OutputLinear(self.n_q, self.v_head_dim, self.d_model)(p["wo"], out), cache

@@ -4,6 +4,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
 import torch.nn.functional as F
 
 from .module import Module, ParamSpec, normal_init
@@ -28,7 +29,8 @@ class Embedding(Module):
         # gather the same rows bit for bit
         x = reduce_partials(F.embedding(tokens, split_once(p["table"], 0)))
         if self.scale_by_sqrt_d:
-            x = x * x.new_tensor(math.sqrt(self.d))
+            # the scale made on the device (a copy from the host would break a graph capture)
+            x = x * torch.full((), math.sqrt(self.d), dtype=x.dtype, device=x.device)
         return x
 
     def attend(self, p, x):

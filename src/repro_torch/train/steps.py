@@ -14,7 +14,10 @@ The LM entry points serve and train every LM family (``TransformerLM``,
 ``Mamba2LM``, ``HymbaLM``, ``WhisperModel``: each has the same method
 names). ``make_lm_prefill``, ``make_lm_decode_step`` and
 ``greedy_generate`` run under ``torch.no_grad()`` where the parameters
-are: on the card their prefills go through the LM kernels.
+are: on the card their prefills go through the LM kernels, and the decode
+step is captured into a CUDA graph and replayed for every token
+(``greedy_generate`` calls the model's step eagerly, as the JAX package's
+loop calls it un-jitted).
 ``make_lm_train_step`` differentiates the models, whose attention and SSD
 modules then take the plain ops on both devices (``kernels.grad_route``).
 """
@@ -22,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from ..nn.module import tree_leaves, tree_map, tree_unflatten
+from ..core.pipeline import CapturedGraph, _capture_stream, capture_graph
+from ..nn.module import tree_def, tree_leaves, tree_map, tree_unflatten
 from .losses import chunked_cross_entropy, pix2pix_d_loss, pix2pix_g_loss, yolo_loss
 
 
@@ -161,15 +165,75 @@ def make_lm_train_step(model, optimizer, aux_weight: float = 0.01, n_micro: int 
 
 def make_lm_decode_step(model):
     """One serving decode step: (params, token, caches, t) -> (logits,
-    caches). The step writes the new token into the caches it is given and
-    returns them (the JAX cell's ``donate_argnums=(2,)``): the caller's
-    caches are overwritten; a caller that keeps them passes a clone."""
+    caches), ``t`` an int or a 0-d integer tensor. The step writes the new
+    token into the caches it is given and returns them (the JAX cell's
+    ``donate_argnums=(2,)``): the caller's caches are overwritten; a caller
+    that keeps them passes a clone.
+
+    On plain CUDA tensors the step is what the JAX launcher's ``jax.jit``
+    compiles once for every ``t``: ``model.decode_step`` captured into a
+    ``torch.cuda.CUDAGraph`` once per key (the parameters' identity, the
+    token's shape and dtype, the caches' tree, each cache leaf's shape,
+    dtype, strides and address, and the current stream) and replayed for
+    every token. Each call fills the graph's token and 0-d int32 position
+    buffers on the device (no host sync), replays the graph and returns a
+    clone of its logits with the caller's own caches: the graph writes into
+    them, so a decode loop that passes back the caches it got replays one
+    graph and nothing copies a cache in or out; caches at another address
+    get a capture of their own. Before a capture the step runs once eagerly
+    on a side stream on scratch caches of the same shapes (a run on the
+    caller's would advance its SSM states a second time). A capture that
+    fails raises, naming the model; nothing falls back to eager. On CPU
+    tensors (the caller asked for the CPU), ``meta`` tensors and DTensors
+    (the mesh step is not captured) the step runs ``model.decode_step``
+    eagerly. ``step.graphs`` holds the captures by key."""
+    from torch.distributed.tensor import DTensor
+
+    graphs: dict[tuple, CapturedGraph] = {}
 
     @torch.no_grad()
     def decode_step(params, token, caches, t):
-        return model.decode_step(params, token, caches, t)
+        leaves = tree_leaves(caches)
+        if token.device.type != "cuda" or any(isinstance(a, DTensor) for a in (token, *leaves)):
+            return model.decode_step(params, token, caches, t)
+        stream = torch.cuda.current_stream(token.device)
+        key = (id(params), tuple(token.shape), token.dtype, tree_def(caches),
+               tuple((tuple(a.shape), a.dtype, a.stride(), a.data_ptr()) for a in leaves), stream.cuda_stream)
+        g = graphs.get(key)
+        if g is None:
+            g = graphs[key] = _capture_decode(model, params, token, caches, stream)
+        static_token, position = g.static_in
+        static_token.copy_(token)
+        if isinstance(t, torch.Tensor):
+            position.copy_(t)
+        else:
+            position.fill_(t)
+        g.graph.replay()
+        g.replays += 1
+        return g.static_out.clone(), caches
 
+    decode_step.graphs = graphs
     return decode_step
+
+
+def _capture_decode(model, params, token, caches, stream) -> CapturedGraph:
+    """``model.decode_step`` on static token and position buffers and the
+    caller's ``caches``, captured into a CUDA graph of ``stream``'s pool
+    (``CapturedSegment._capture``'s protocol)."""
+    dev = token.device
+    side = _capture_stream(dev)
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        static_token = token.clone()
+        position = torch.zeros((), dtype=torch.int32, device=dev)
+        # warm-up on scratch caches: first-use work stays out of the graph
+        model.decode_step(params, static_token, tree_map(torch.zeros_like, caches), position)
+    name = getattr(getattr(model, "cfg", None), "name", type(model).__name__)
+    graph, (logits, _), pool_graphs = capture_graph(
+        stream, side, lambda: model.decode_step(params, static_token, caches, position), f"the decode step of {name}")
+    captured = CapturedGraph(graph, params, [static_token, position], logits, [], {})
+    pool_graphs.add(captured)
+    return captured
 
 
 def make_lm_prefill(model):

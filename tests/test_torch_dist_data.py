@@ -21,13 +21,19 @@ f32 caches, from the parameters of one seed and inputs drawn with numpy:
   placed by ``train_shardings`` (the other families' gradients:
   ``test_torch_dist_ranks.py::test_gradients_on_a_2x2_mesh_equal_one_process``).
 
-The decode steps donate their caches and must return the ones they were
-given (``data_outputs`` raises otherwise). Each output (the logits of every
+The decode steps take their position as a replicated 0-d int32 tensor,
+donate their caches and must return the ones they were given
+(``data_outputs`` raises otherwise). The slot write alone, with a tensor
+index at every slot of the ring, is held on four ranks against the
+int-index write it replaced, on this torch version and under torch 2.11's
+emulation (``test_slot_write_with_a_tensor_index_on_four_ranks``). Each output (the logits of every
 step, every cache leaf, the loss, every gradient) is gathered whole on every rank and must lie within
 ``DATA_TOL`` (1e-5) of the reference leaf's largest magnitude. The ranks
 run every family of a kind in one spawn and save what each gave (or the
 traceback it raised); the cases read it through a module-scoped fixture.
 """
+import contextlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -104,6 +110,43 @@ def test_sharded_step_equals_one_process(arch, kind, ranks):
         assert not isinstance(res, str), f"rank {r} raised:\n{res}"
         err = data_error(res, want)
         assert err <= DATA_TOL, f"rank {r}: {err:.3e} of the largest reference value (bound {DATA_TOL})"
+
+
+def _slot_write_rank(rank, world, store, out):
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from test_torch_dist_views import emulated_2_11, slot_write_case
+
+    _join(rank, world, store)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        res = {}
+        for version, ctx in (("2.13", contextlib.nullcontext), ("2.11", emulated_2_11)):
+            with ctx():
+                for shape in ((1, 8, 4, 6), (1, 8, 6)):
+                    res[version, shape] = slot_write_case(mesh, shape, lambda x, m, pl: distribute_tensor(x, m, pl))
+        torch.save(res, out.format(rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_slot_write_with_a_tensor_index_on_four_ranks(tmp_path):
+    """The decode's slot write into a batch-1 cache split on the sequence
+    over "data" (and on the KV heads over "model", where it has them) on
+    four gloo ranks, at every slot of the ring with a 0-d int32 index,
+    plain and as a replicated DTensor, on this torch version and under
+    ``test_torch_dist_views.emulated_2_11``: on every rank the cache given
+    comes back with its placements, no collective is counted
+    (``RankCounter``), its block equals the int-index write's bit for bit,
+    and the whole cache gathered equals the parent code's item assignment."""
+    out = str(tmp_path / "rank{}.pt")
+    _spawn(_slot_write_rank, 4, str(tmp_path / "store"), out)
+    for r in range(4):
+        for key, rows in torch.load(out.format(r)).items():
+            assert len(rows) == 2 * 8, key
+            bad = [row for row in rows if not (row["same"] and row["equal"] and row["full"]) or row["collectives"]]
+            assert not bad, f"rank {r}, torch {key[0]}, cache {key[1]}: {bad}"
 
 
 def test_long_decode_on_a_2x2x2_mesh_equals_one_process(tmp_path):
