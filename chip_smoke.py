@@ -145,7 +145,13 @@ toolkit, this
    loop, the launcher's batches: ms, tokens/s, peak memory), and step 1
    of the two paths from the same parameters and batch, loss and every
    parameter within ``MESH_STEP1_RTOL``, one more mesh step under
-   ``torch.profiler``; step 1
+   ``torch.profiler``; the plain step with the parent's layer loop
+   (``t[i]`` per layer) and this tree's (``unstack``) in turns, then the
+   one-rank mesh step the same way (``stacked_grads_ab``: ms, peak,
+   losses, device busy and the SelectBackward0 / UnbindBackward0 split of
+   the plain step), failing where the backward
+   makes a stacked leaf's full-shape tensor more than once a leaf
+   (``stacked_grad_copies``); step 1
    of gemma2-2b at 2 layers in f32 against the same step on the CPU
    (``LM_STEP1_LOSS_RTOL``, ``LM_STEP1_GRAD_TOL`` per gradient leaf); one
    bf16 step each of hymba-1.5b, mamba2-2.7b and whisper-small at full
@@ -1100,7 +1106,8 @@ def time_split(torch, prefill, params, tokens):
     wall of the same run (the profiler's own host cost included), the ops
     whose own kernels take the most device time (``top_ops``) and the
     backward nodes whose kernels, theirs and their ops', take the most
-    (``top_backward``). Empty when the profiler recorded no kernel."""
+    (``top_backward``; every node's in ``backward``). Empty when the
+    profiler recorded no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1137,7 +1144,8 @@ def time_split(torch, prefill, params, tokens):
         return sorted(d.items(), key=lambda kv: -kv[1])[:k]
 
     return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall, "by_kind": by_kind,
-            "top_other": top(other, 5), "top_ops": top(ops, 8), "top_backward": top(backward, 6)}
+            "top_other": top(other, 5), "top_ops": top(ops, 8), "top_backward": top(backward, 6),
+            "backward": backward}
 
 
 def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref):
@@ -1340,6 +1348,40 @@ def cache_copies(torch, limit):
             return out
 
     mode = CacheCopies()
+    mode.rows = {}
+    return mode
+
+
+def stacked_grad_copies(torch, leaves):
+    """A ``TorchDispatchMode`` whose ``rows`` count, while it is entered,
+    the new tensors (not in an input's storage) of a stacked leaf's shape
+    and dtype that the backward makes in a node which hands its gradient
+    to a leaf of that shape (an edge into the leaf's ``AccumulateGrad``):
+    the stacked leaves' gradients and the sums they are added into, by op
+    and shape. ``leaves``: the stacked parameter leaves (their shapes and
+    dtypes)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    kinds = {(tuple(t.shape), t.dtype) for t in leaves}
+
+    class StackedGradCopies(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            node = torch._C._current_autograd_node()
+            if node is None:
+                return out
+            feeds = {(tuple(f.variable.shape), f.variable.dtype) for f, _ in node.next_functions
+                     if f is not None and hasattr(f, "variable")}
+            ins = {x.untyped_storage().data_ptr() for x in tree_leaves((args, kwargs)) if isinstance(x, torch.Tensor)}
+            for o in tree_leaves(out):
+                kind = (tuple(o.shape), o.dtype) if isinstance(o, torch.Tensor) else None
+                if kind in kinds and kind in feeds and o.untyped_storage().data_ptr() not in ins:
+                    key = (str(func), kind[0])
+                    self.rows[key] = self.rows.get(key, 0) + 1
+            return out
+
+    mode = StackedGradCopies()
     mode.rows = {}
     return mode
 
@@ -2583,7 +2625,7 @@ def mesh_vs_plain_step1(torch, smi, dev, cfg, init, steps):
         step = on_mesh(make_lm_train_step(model, opt, donate=True))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, m = step(params, state, shard_batch(host[0], sh.batch))
+        params, state, m = step(params, state, shard_batch(host[0], sh.batch))  # donated: the same trees
         mesh_loss = float(m["loss"])
         first_ms = (time.perf_counter() - t0) * 1e3
         snap = [t.to_local().clone() for t in tree_leaves(params)]
@@ -2613,6 +2655,181 @@ def mesh_vs_plain_step1(torch, smi, dev, cfg, init, steps):
     if not (loss_rel <= MESH_STEP1_RTOL and max(rel) <= MESH_STEP1_RTOL):
         raise AssertionError(f"one-rank mesh step 1 differs from the plain step: loss {loss_rel:.3e}, "
                              f"parameters {max(rel):.3e}")
+    return row
+
+
+# The stacked-layer gradients (``nn.module.unstack``: one ``unbind`` of each
+# stacked leaf a forward, whose backward stacks the layers' gradients),
+# against the parent formulation (``t[i]`` of every leaf for every layer,
+# each backpropagating a zero-filled tensor of the leaf's full shape), on
+# the plain gemma2-2b step at full depth (LM_TRAIN_B x LM_TRAIN_S, bf16,
+# remat), in turns. Predicted from the parent's profile on the card
+# (SelectBackward0 266.19 of 822.39 ms of device time, the step
+# 940.99-983.21 ms, peak 43.41-44.08 GiB): SelectBackward0's
+# time goes; the stacks (UnbindBackward0) take about 2F / 3.35 TB/s ~ 5 ms
+# (F = 8.10 GB of f32 block parameters); device busy falls to about 560 ms
+# and the synchronised step to about 680-720 ms; the peak is no higher than
+# the parent's; the losses are bit-equal
+STACKED_RUNS = ("parent", "change", "change", "parent")
+STACKED_STEPS = 5  # timed steps a run, from the same parameters and batches
+STACKED_PREDICTED_MS = (680.0, 720.0)
+STACKED_PREDICTED_BUSY_MS = 560.0
+
+
+@contextlib.contextmanager
+def parent_layers():
+    """The parent tree's layer loops while entered: the four LM families
+    take ``t[i]`` of every stacked leaf for every layer
+    (``nn.module.layer``) in place of ``unstack``."""
+    from repro_torch.models import hymba, lm, mamba2, whisper
+    from repro_torch.nn.module import layer, tree_leaves
+
+    def loop(tree):
+        return [layer(tree, i) for i in range(tree_leaves(tree)[0].shape[0])]
+
+    saved = [(m, m.unstack) for m in (hymba, lm, mamba2, whisper)]
+    for m, _ in saved:
+        m.unstack = loop
+    try:
+        yield
+    finally:
+        for m, fn in saved:
+            m.unstack = fn
+
+
+def stacked_grads_ab(torch, smi, dev, cfg, init):
+    """The gemma2-2b step (``cfg``: full depth, bf16, remat) with this
+    tree's layer loop and the parent's, in ``STACKED_RUNS`` order, on plain
+    tensors and then on a one-rank NCCL mesh (``act_spec`` over "data", as
+    in ``mesh_vs_plain_step1``): each run ``STACKED_STEPS`` donated steps
+    from ``init`` on the same batches (ms synchronised, peak memory,
+    losses); one plain step of each under ``stacked_grad_copies`` (fails
+    where a stacked leaf's gradient is made more than once) and one of each
+    under ``torch.profiler`` (device busy, SelectBackward0 /
+    UnbindBackward0). Returns the row."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import build_model
+    from repro_torch.data import shard_batch
+    from repro_torch.dist import device_put, on_mesh, train_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.nn.module import tree_leaves, tree_map
+    from repro_torch.train import AdamW, make_lm_train_step
+
+    opt = AdamW(lr=1e-4, weight_decay=0.01)
+    rng = np.random.default_rng(4)
+    host = [_lm_batch(torch, rng, cfg, LM_TRAIN_B, LM_TRAIN_S, torch.device("cpu")) for _ in range(STACKED_STEPS)]
+    batches = [{k: v.to(dev) for k, v in b.items()} for b in host]
+    stacked = tree_leaves(init["blocks"])
+
+    def fresh():
+        params = tree_map(lambda t: t.to(dev, copy=True), init)
+        return params, opt.init(params)
+
+    def within(formulation):
+        return parent_layers() if formulation == "parent" else contextlib.nullcontext()
+
+    def timed(formulation, step, params, state, batches):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        with within(formulation):
+            for b in batches:
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, b)
+                losses.append(m["loss"].item())
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return {"formulation": formulation, "ms": ms, "step_ms": sum(ms[1:]) / len(ms[1:]), "losses": losses,
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+
+    model = build_model(cfg)
+    runs = {"plain": [], "mesh": []}
+    step = make_lm_train_step(model, opt, donate=True)
+    for formulation in STACKED_RUNS:
+        params, state = fresh()
+        runs["plain"].append(timed(formulation, step, params, state, batches))
+        del params, state
+        torch.cuda.empty_cache()
+    mesh_model = build_model(dataclasses.replace(cfg, act_spec=("data",)))
+    for formulation in STACKED_RUNS:
+        mesh = make_host_mesh(1, device=dev)
+        try:
+            params, state = fresh()
+            sh = train_shardings(mesh, mesh_model.axes(), mesh_model.abstract(), state, LM_TRAIN_B)
+            params, state = device_put(params, sh.params), device_put(state, sh.opt_state)
+            mesh_step = on_mesh(make_lm_train_step(mesh_model, opt, donate=True))
+            runs["mesh"].append(timed(formulation, mesh_step, params, state, [shard_batch(b, sh.batch) for b in host]))
+            del params, state, mesh_step
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    counts, splits = {}, {}
+    for formulation in ("parent", "change"):
+        params, state = fresh()
+        with within(formulation):
+            with stacked_grad_copies(torch, stacked) as mode:
+                params, state, _ = step(params, state, batches[0])
+            torch.cuda.synchronize()
+            counts[formulation] = mode.rows
+            splits[formulation] = time_split(torch, lambda p, b: step(p, state, b), params, batches[1])
+        del params, state
+        torch.cuda.empty_cache()
+    per_shape = {}
+    for t in stacked:
+        per_shape[tuple(t.shape)] = per_shape.get(tuple(t.shape), 0) + 1
+    made = {}
+    for (_, shape), k in counts["change"].items():
+        made[shape] = made.get(shape, 0) + k
+    over = {shape: k for shape, k in made.items() if k > per_shape.get(shape, 0)}
+    row = {"runs": runs, "counts": {f: {f"{op} {list(shape)}": k for (op, shape), k in c.items()}
+                                    for f, c in counts.items()},
+           "stacked_leaves": len(stacked), "splits": splits}
+
+    def ops(c):
+        got = {}
+        for (op, _), k in c.items():
+            got[op] = got.get(op, 0) + k
+        return ", ".join(f"{op} {k}" for op, k in sorted(got.items())) or "none"
+
+    print(f"gemma2-2b stacked-layer gradients (full depth, {LM_TRAIN_B} x {LM_TRAIN_S}, bf16, remat; "
+          f"{len(stacked)} stacked leaves, {cfg.n_layers} layers): new tensors of a stacked leaf's full shape made in "
+          f"the backward for a leaf, this tree {sum(counts['change'].values())} ({ops(counts['change'])}), the parent "
+          f"formulation {sum(counts['parent'].values())} ({ops(counts['parent'])}); most for one leaf shape: "
+          f"{max((made.get(s, 0) / n for s, n in per_shape.items()), default=0):g} a leaf (<= 1)")
+    for f in ("parent", "change"):
+        sp = splits[f]
+        if sp:
+            bw = sp["backward"]
+            print(f"  {f} plain step under torch.profiler: device busy {sp['busy_ms']:.2f} ms of {sp['wall_ms']:.2f} "
+                  f"wall (predicted for this tree about {STACKED_PREDICTED_BUSY_MS:g}), SelectBackward0 "
+                  f"{bw.get('SelectBackward0', 0.0):.2f} ms, UnbindBackward0 {bw.get('UnbindBackward0', 0.0):.2f} ms; "
+                  "by backward node: " + "; ".join(f"{k} {v:.2f}" for k, v in sp["top_backward"]))
+        else:
+            print(f"  {f} plain step split: not measured (the profiler recorded no kernel)")
+    lo, hi = STACKED_PREDICTED_MS
+    same = True
+    for path, rs in runs.items():
+        def mean(f):
+            vals = [r["step_ms"] for r in rs if r["formulation"] == f]
+            return sum(vals) / len(vals)
+
+        losses = {f: [r["losses"] for r in rs if r["formulation"] == f] for f in ("parent", "change")}
+        bit_equal = all(a == losses["parent"][0] for f in losses for a in losses[f])
+        same = same and bit_equal
+        peaks = {f: max(r["peak_bytes"] for r in rs if r["formulation"] == f) for f in ("parent", "change")}
+        verdict = "no higher, as predicted" if peaks["change"] <= peaks["parent"] else "HIGHER than predicted"
+        print(f"  {path}, runs {' / '.join(STACKED_RUNS)}: step ms (steps 2-{STACKED_STEPS}) "
+              + ", ".join(f"{r['step_ms']:.2f}" for r in rs)
+              + f"; this tree {mean('change'):.2f}"
+              + (f" (predicted {lo:g}-{hi:g})" if path == "plain" else " (predicted below the parent's)")
+              + f", parent formulation {mean('parent'):.2f}; peak this tree {peaks['change'] / 2**30:.2f} GiB, "
+              f"parent {peaks['parent'] / 2**30:.2f} GiB ({verdict}); losses "
+              f"{'bit-equal in all four runs' if bit_equal else 'differ: ' + json.dumps(losses)} | {smi}")
+    if over or sum(counts["change"].values()) != len(stacked):
+        raise AssertionError(f"the backward made a stacked leaf's full-shape tensor more than once a leaf: "
+                             f"{row['counts']['change']}")
     return row
 
 
@@ -2747,6 +2964,7 @@ def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
     del out, params, state
     torch.cuda.empty_cache()
     rows["gemma2_2b step1 mesh vs plain"] = mesh_vs_plain_step1(torch, smi, dev, bcfg, init, steps)
+    rows["gemma2_2b stacked grads"] = stacked_grads_ab(torch, smi, dev, bcfg, init)
     del init
 
     # ---- step 1 on the card against the CPU (f32, 2 layers)

@@ -22,7 +22,7 @@ import torch
 from ..dist.sharding import constrain
 from ..nn import MLP, Attention, Embedding, Mamba2Block, Module, RMSNorm, Stacked
 from ..nn.attention import decode_position
-from ..nn.module import checkpointed, layer, tree_map, tree_stack
+from ..nn.module import checkpointed, layer, tree_map, tree_stack, unstack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,9 +171,8 @@ class HymbaLM(Module):
         positions, index = self._positions(tokens, positions)
         x = self._embed(p, tokens)
         blk = checkpointed(HymbaBlock(c), c.remat)
-        for i, w in enumerate(c.windows()):
-            x = constrain(blk(layer(p["blocks"], i), constrain(x, c.act_spec), positions, w, index_positions=index),
-                          c.act_spec)
+        for bp, w in zip(unstack(p["blocks"]), c.windows()):
+            x = constrain(blk(bp, constrain(x, c.act_spec), positions, w, index_positions=index), c.act_spec)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
             return RMSNorm(c.d_model, c.norm_eps)(p["final_norm"], x), aux
@@ -195,8 +194,8 @@ class HymbaLM(Module):
         x = self._embed(p, tokens)
         blk = HymbaBlock(c)
         caches = []
-        for i, w in enumerate(c.windows()):
-            x, cache = blk.prefill(layer(p["blocks"], i), x, positions, w, cache_dtype, index_positions=index)
+        for bp, w in zip(unstack(p["blocks"]), c.windows()):
+            x, cache = blk.prefill(bp, x, positions, w, cache_dtype, index_positions=index)
             caches.append(cache)
         return self._logits(p, x[:, -1:]), tree_stack(caches)
 
@@ -208,6 +207,6 @@ class HymbaLM(Module):
         t = decode_position(t, token)
         x = self._embed(p, token)
         blk = HymbaBlock(c)
-        for i, w in enumerate(c.windows()):
-            x, _ = blk.decode(layer(p["blocks"], i), x, layer(caches, i), t, w)
+        for i, (bp, w) in enumerate(zip(unstack(p["blocks"]), c.windows())):
+            x, _ = blk.decode(bp, x, layer(caches, i), t, w)
         return self._logits(p, x), caches

@@ -9,8 +9,10 @@ dense), deepseek-v2-lite (MLA + MoE), and the qwen2-vl text backbone
 The parameter tree is the JAX package's: the first ``first_k_dense``
 blocks of an MoE model as a list (``dense_blocks``), the rest stacked on a
 leading layer axis (``blocks``); where the JAX model scans over that axis
-the port loops over it in Python, and each layer's window is a Python int
-from ``cfg.windows()``. On the card the full-sequence paths (``__call__``,
+the port loops in Python over ``unstack``'s per-layer views (one split of
+each leaf, whose backward stacks the layers' gradients as the scan's
+does), and each layer's window is a Python int from ``cfg.windows()``. On
+the card the full-sequence paths (``__call__``,
 ``prefill``) run GQA attention on the flash-attention kernel when the
 model builds the positions itself (``arange(S)``, broadcast to the three
 M-RoPE components); a caller's positions, MLA and the one-token
@@ -26,7 +28,7 @@ import torch
 from ..dist.sharding import constrain
 from ..nn import MLP, Attention, Embedding, Linear, MLAAttention, MoE, Module, RMSNorm, Stacked
 from ..nn.attention import decode_position
-from ..nn.module import checkpointed, layer, tree_map, tree_stack
+from ..nn.module import checkpointed, layer, tree_map, tree_stack, unstack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,8 +256,8 @@ class TransformerLM(Module):
         dense, scan = LMBlock(c, use_moe=False), LMBlock(c, use_moe=c.moe)
         for i in range(self.n_dense):
             yield dense, p["dense_blocks"][i], windows[i]
-        for i in range(self.n_scan):
-            yield scan, layer(p["blocks"], i), windows[self.n_dense + i]
+        for i, bp in enumerate(unstack(p["blocks"])):
+            yield scan, bp, windows[self.n_dense + i]
 
     def _positions(self, tokens, positions):
         """The caller's positions, or ``arange(S)`` in every row (broadcast

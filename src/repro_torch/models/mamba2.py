@@ -16,7 +16,7 @@ import torch
 
 from ..dist.sharding import constrain
 from ..nn import Embedding, Mamba2Block, Module, RMSNorm, Stacked
-from ..nn.module import checkpointed, layer, tree_map, tree_stack
+from ..nn.module import checkpointed, layer, tree_map, tree_stack, unstack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,8 +119,8 @@ class Mamba2LM(Module):
     def __call__(self, p, tokens, positions=None, return_hidden=False):
         x = self._embed(p, tokens)
         blk = checkpointed(Mamba2LayerWrapped(self.cfg), self.cfg.remat)
-        for i in range(self.cfg.n_layers):
-            x = constrain(blk(layer(p["blocks"], i), constrain(x, self.cfg.act_spec)), self.cfg.act_spec)
+        for bp in unstack(p["blocks"]):
+            x = constrain(blk(bp, constrain(x, self.cfg.act_spec)), self.cfg.act_spec)
         x = self._final(p, x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return (x, aux) if return_hidden else (self._logits(p, x), aux)
@@ -140,8 +140,8 @@ class Mamba2LM(Module):
         x = self._embed(p, tokens)
         blk = Mamba2LayerWrapped(self.cfg)
         caches = []
-        for i in range(self.cfg.n_layers):
-            x, cache = blk.prefill(layer(p["blocks"], i), x, cache_dtype)
+        for bp in unstack(p["blocks"]):
+            x, cache = blk.prefill(bp, x, cache_dtype)
             caches.append(cache)
         return self._logits(p, self._final(p, x[:, -1:])), tree_stack(caches)
 
@@ -151,6 +151,6 @@ class Mamba2LM(Module):
         not read: the SSM state carries the position."""
         x = self._embed(p, token)
         blk = Mamba2LayerWrapped(self.cfg)
-        for i in range(self.cfg.n_layers):
-            x, _ = blk.decode(layer(p["blocks"], i), x, layer(caches, i))
+        for i, bp in enumerate(unstack(p["blocks"])):
+            x, _ = blk.decode(bp, x, layer(caches, i))
         return self._logits(p, self._final(p, x)), caches

@@ -20,7 +20,7 @@ import torch
 
 from ..nn import MLP, Attention, Embedding, LayerNorm, Module, ParamSpec, Stacked, normal_init
 from ..nn.attention import decode_position
-from ..nn.module import checkpointed, layer, tree_map, tree_stack
+from ..nn.module import checkpointed, layer, tree_map, tree_stack, unstack
 
 
 def sinusoid_pos(n: int, d: int, device=None):
@@ -166,8 +166,8 @@ class WhisperModel(Module):
         c = self.cfg
         x = frames.to(c.act_dtype) + sinusoid_pos(frames.shape[1], c.d_model, frames.device).to(c.act_dtype)
         blk = checkpointed(EncBlock(c), c.remat)
-        for i in range(c.n_enc_layers):
-            x = blk(layer(p["enc_blocks"], i), x)
+        for bp in unstack(p["enc_blocks"]):
+            x = blk(bp, x)
         return c.norm()(p["ln_enc"], x)
 
     def _dec_embed(self, p, tokens):
@@ -190,8 +190,8 @@ class WhisperModel(Module):
         enc_out = self.encode(p, frames)
         x = self._dec_embed(p, tokens)
         blk = checkpointed(DecBlock(c), c.remat)
-        for i in range(c.n_dec_layers):
-            x = blk(layer(p["dec_blocks"], i), x, enc_out)
+        for bp in unstack(p["dec_blocks"]):
+            x = blk(bp, x, enc_out)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
             return c.norm()(p["ln_dec"], x), aux
@@ -211,8 +211,8 @@ class WhisperModel(Module):
         x = self._dec_embed(p, tokens)
         blk = DecBlock(c)
         caches = []
-        for i in range(c.n_dec_layers):
-            x, cache = blk.prefill(layer(p["dec_blocks"], i), x, enc_out, cache_dtype)
+        for bp in unstack(p["dec_blocks"]):
+            x, cache = blk.prefill(bp, x, enc_out, cache_dtype)
             caches.append(cache)
         return self._logits(p, x[:, -1:]), tree_stack(caches)
 
@@ -229,6 +229,6 @@ class WhisperModel(Module):
         x = Embedding(c.vocab, c.d_model)(p["embed"], token).to(c.act_dtype)
         x = x + p["pos_embed"].index_select(0, pe_idx).to(c.act_dtype)
         blk = DecBlock(c)
-        for i in range(c.n_dec_layers):
-            x, _ = blk.decode(layer(p["dec_blocks"], i), x, layer(caches, i), t)
+        for i, bp in enumerate(unstack(p["dec_blocks"])):
+            x, _ = blk.decode(bp, x, layer(caches, i), t)
         return self._logits(p, x), caches

@@ -12,7 +12,8 @@
   tuples: "embed", "mlp", "heads", "vocab", ...), which ``dist.sharding``
   maps onto the mesh.
 - ``Stacked(module, n)`` stacks ``n`` copies on a leading layer axis (the
-  JAX package scans over it; the port's models loop over it).
+  JAX package scans over it; the port's models loop over ``unstack`` of
+  it).
 - ``checkpointed(fn, remat, policy)`` is ``jax.checkpoint``'s counterpart
   for a block call under autograd.
 - ``from_jax(tree)`` carries a JAX parameter tree (as numpy arrays) over
@@ -196,8 +197,20 @@ class Stacked(Module):
 
 
 def layer(tree, i: int):
-    """Layer ``i``'s slice of a ``Stacked`` parameter (or cache) tree: views."""
+    """Layer ``i``'s slice of a ``Stacked`` cache tree: views (a decode
+    step writes into them). Parameters go through ``unstack``."""
     return tree_map(lambda t: t[i], tree)
+
+
+def unstack(tree) -> list:
+    """A ``Stacked`` parameter tree as one tree per layer: every leaf split
+    once (``unbind``), the per-layer leaves views of it. Under autograd the
+    split's backward stacks the layers' gradients into one tensor of the
+    leaf's shape, as the JAX package's scan writes layer i's gradient into
+    row i; a ``t[i]`` per layer would backpropagate a zero-filled tensor of
+    the leaf's full shape for every layer."""
+    split = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, list(row)) for row in zip(*split)]
 
 
 def tree_stack(trees):
@@ -234,17 +247,19 @@ def tree_def(tree):
 
 def tree_unflatten(tree, leaves):
     """A tree of ``tree``'s structure holding ``leaves`` (in ``tree_leaves`` order)."""
-    it = iter(leaves)
+    return _fill(tree, iter(leaves))
 
-    def fill(node):
-        if isinstance(node, dict):
-            filled = {k: fill(node[k]) for k in sorted(node)}
-            return {k: filled[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(fill(v) for v in node)
-        return next(it)
 
-    return fill(tree)
+def _fill(node, it):
+    # a module function: a closure that called itself would be a reference
+    # cycle holding ``it``, and the leaves (a step's gradients) would live
+    # until the garbage collector's next pass
+    if isinstance(node, dict):
+        filled = {k: _fill(node[k], it) for k in sorted(node)}
+        return {k: filled[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_fill(v, it) for v in node)
+    return next(it)
 
 
 class RowMajorGrad(torch.autograd.Function):
