@@ -31,10 +31,18 @@ toolkit, this
    replay counts the launches its graph captured,
    ``repro_torch.kernels.graph_launches``; the wrappers' own counters stay
    0), and holds every output against the same model's ``run_all`` on the
-   plain (``xla``) ops on the card (atol 5e-3, rtol 1e-2); serves 16
-   frames per stream on fresh servers as graphs, eager, eager, graphs
-   (``served_ab``: frames/s, p50/p99, host-issue share, peak memory; 4
-   times the launch counts, outside graphs or replayed); each served run
+   plain (``xla``) ops on the card (atol 5e-3, rtol 1e-2); each frame's
+   state lives in a slot (``serve.executor.Slot``): the run's host copies
+   and clones of state leaves, counted under a dispatch mode
+   (``served_copies``), are at most 2 a Pix2Pix frame and 4 a YOLOv8n
+   frame, and no graph is captured in it (slots and graphs printed);
+   serves 16 frames per stream on fresh servers with the parent tree's
+   runner (``ParentSegment``: every state leaf copied in and cloned out),
+   the slots, eager, eager, the slots, the parent (``served_ab``:
+   frames/s, p50/p99, host-issue and blocked shares, memory held after
+   the warm-up and peak over the run, outputs bit-equal across runs; 4
+   times the launch counts, outside graphs or replayed; then the copies
+   of 12 frames more); each served run
    also prints the Python collections and the allocator's new device
    segments inside it (``served_trace.GcClock``, ``device_segments``);
    then splits each
@@ -1643,60 +1651,224 @@ def bf16_forward_phase(torch, ops, dev, img=IMG, base=BASE):
 
 
 AB_FRAMES = 16  # frames per stream of each served_ab run: the main path's run is too short to time
+# served_ab's runs, in turns: the parent tree's runner, this tree's slots,
+# the eager ops (jit_segments=False)
+AB_RUNS = ("parent", "slots", "eager", "eager", "slots", "parent")
+SERVED_COPY_OPS = ("copy_", "clone", "cat", "_to_copy")
+
+
+def served_copies(torch):
+    """A ``TorchDispatchMode`` whose ``rows`` count, while it is entered,
+    the host-issued ops that copy a tensor (``SERVED_COPY_OPS``), by op
+    and output shape. In a served run whose segments are replayed CUDA
+    graphs (a replay is no dispatched op) these are the copies and clones
+    of its state leaves."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class ServedCopies(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.__name__.split(".")[0]
+            if name in SERVED_COPY_OPS:
+                key = f"{name} {tuple(out.shape)}"
+                self.rows[key] = self.rows.get(key, 0) + 1
+            return out
+
+    mode = ServedCopies()
+    mode.rows = {}
+    return mode
+
+
+class ParentSegment:
+    """The parent tree's segment runner, kept for ``served_ab``: one CUDA
+    graph per (params, stream, state structure), captured on input buffers
+    of its own into the stream's pool; each call copies every state leaf
+    into them, replays, and clones every output leaf that is not a
+    pass-through (the executor then ``record_stream``s every state leaf and
+    admits merged frames by ``torch.cat``: ``parent_runner``)."""
+
+    def __init__(self, name, fn):
+        import weakref
+
+        self.name, self.fn, self.graphs, self.holders = name, fn, {}, weakref.WeakSet()
+
+    def __call__(self, params, state):
+        import torch
+
+        from repro_torch.kernels import graph_launches
+        from repro_torch.nn.module import tree_def, tree_leaves, tree_unflatten
+
+        leaves = tree_leaves(state)
+        if not leaves or leaves[0].device.type != "cuda":
+            return self.fn(params, state)
+        stream = torch.cuda.current_stream(leaves[0].device)
+        key = (id(params), stream.cuda_stream, tree_def(state),
+               tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = self._capture(params, state, leaves, stream)
+        for buf, t in zip(g.static_in, leaves):
+            buf.copy_(t)
+        g.graph.replay()
+        g.replays += 1
+        graph_launches.update(g.launches)
+        return tree_unflatten(g.static_out, [leaves[a] if a is not None else o.clone()
+                                             for o, a in zip(tree_leaves(g.static_out), g.alias)])
+
+    def _capture(self, params, state, leaves, stream):
+        import torch
+
+        from repro_torch.core import pipeline
+        from repro_torch.kernels import launch_counters
+        from repro_torch.nn.module import tree_leaves, tree_unflatten
+
+        side = pipeline._capture_stream(leaves[0].device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            static_in = [t.clone() for t in leaves]
+            static_state = tree_unflatten(state, static_in)
+            self.fn(params, static_state)
+        counters = launch_counters()
+        before = {pkg: dict(c) for pkg, c in counters.items()}
+        try:
+            graph, static_out, pool_graphs = pipeline.capture_graph(
+                stream, side, lambda: self.fn(params, static_state), f"segment {self.name}")
+        finally:
+            launched = {}
+            for pkg, c in counters.items():
+                for k, v in c.items():
+                    if v != before[pkg][k]:
+                        launched[k] = v - before[pkg][k]
+                c.update(before[pkg])
+        ids = {id(t): i for i, t in enumerate(static_in)}
+        alias = [ids.get(id(o)) for o in tree_leaves(static_out)]
+        captured = pipeline.CapturedGraph(graph, params, static_in, static_out, alias, launched)
+        pool_graphs.add(captured)
+        return captured
+
+
+@contextlib.contextmanager
+def parent_runner():
+    """Within the block, models' captured runners are ``ParentSegment``s and
+    executors run without slots, as the parent tree's did."""
+    from repro_torch.core import pipeline
+    from repro_torch.serve import executor
+
+    real_init = executor.StreamExecutor.__init__
+
+    def init(self, *args, **kw):
+        real_init(self, *args, **kw)
+        self._use_slots = False
+
+    with patched(pipeline, "CapturedSegment", ParentSegment), patched(executor.StreamExecutor, "__init__", init):
+        yield
 
 
 def served_ab(torch, build_server, ops, dev, smi, want, clock):
-    """The main path's serving on fresh servers as CUDA graphs, eager
-    (``jit_segments=False``), eager, then graphs again: after one warm-up
-    frame per stream (captures, allocator), ``AB_FRAMES`` frames per stream
-    with the counters set to 0 and the peak memory reset just before. Each
-    eager run must launch ``AB_FRAMES / 4`` times ``want`` outside any
-    graph, each graph run replay as many. Returns a row per run."""
+    """The main path's serving on fresh servers (``AB_RUNS``): the parent
+    tree's runner (``parent_runner``: every state leaf copied into each
+    segment's graph and its outputs cloned out), this tree's slots, the
+    eager ops (``jit_segments=False``) twice, the slots, the parent: after
+    one warm-up frame per stream (captures, allocator), ``AB_FRAMES`` frames
+    per stream with the counters set to 0 and the peak memory reset just
+    before. Each eager run must launch ``AB_FRAMES / 4`` times ``want``
+    outside any graph, each graph run replay as many and capture nothing;
+    every run's outputs bit-equal to the first's. Then, untimed, 4 frames
+    per stream more under ``served_copies`` (the parent's copies and
+    clones; the slots' at most 2 a Pix2Pix frame and 4 a YOLOv8n frame).
+    Memory: held and reserved after the warm-up (weights, slots, graph
+    pools) and the peak over the timed run. Returns a row per run."""
+    import gc
+
     from repro_torch import kernels as kernels_pkg
     from served_trace import device_segments
 
     want = {n: v * AB_FRAMES // 4 for n, v in want.items()}
-    rows = []
-    for jit in (True, False, False, True):
-        bundle = build_server(img=IMG, base=BASE, n_pix=2, n_yolo=1, impl="pallas", device=dev, jit_segments=jit)
-        server = bundle.server
-        for s in bundle.streams:
-            server.submit(s.model_index, bundle.frame_for(s.name, 99))
-        server.drain()
+    rows, ref = [], None
+    for runner in AB_RUNS:
+        jit = runner != "eager"
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
-        server.reset_metrics()
-        mem0 = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()
-        kernels_pkg.reset_graph_launches()
-        frames_in = {s.name: [bundle.frame_for(s.name, t) for t in range(AB_FRAMES)] for s in bundle.streams}
-        torch.cuda.synchronize()
-        seg0, _ = device_segments(torch)
-        clock.start()
-        for t in range(AB_FRAMES):
+        m0, v0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        with parent_runner() if runner == "parent" else contextlib.nullcontext():
+            bundle = build_server(img=IMG, base=BASE, n_pix=2, n_yolo=1, impl="pallas", device=dev,
+                                  jit_segments=jit)
+            server, ex = bundle.server, bundle.server.executor
+            if ex._use_slots != (runner == "slots"):
+                raise AssertionError(f"{runner} run: slots {ex._use_slots}")
             for s in bundle.streams:
-                server.submit(s.model_index, frames_in[s.name][t])
-        server.pump()
-        server.drain()
-        torch.cuda.synchronize()
-        gcs, new_segments = clock.stop(), device_segments(torch)[0] - seg0
-        rep = server.report()
-        eager = dict(ops.launches)
-        replayed = {n: kernels_pkg.graph_launches[n] for n in REPLACES}
-        if (replayed, eager) != ((want, dict.fromkeys(REPLACES, 0)) if jit else (dict.fromkeys(REPLACES, 0), want)):
-            raise AssertionError(f"jit_segments={jit}: replayed {replayed}, outside a graph {eager}, want {want}")
-        row = {"jit_segments": jit, "frames_per_s": rep["aggregate_fps"], "p50_ms": rep["latency_p50_ms"],
-               "p99_ms": rep["latency_p99_ms"], "issue_share": _engine_shares(rep),
-               "blocked_share": 1 - rep["overlap"]["overlap_efficiency"],
-               "peak_mem_bytes": torch.cuda.max_memory_allocated() - mem0, "gc": gcs,
-               "new_device_segments": new_segments}
-        rows.append(row)
-        print(f"served {rep['frames']} frames, {'graphs' if jit else 'eager '}: {rep['aggregate_fps']:.2f} frames/s, p50 "
-              f"{rep['latency_p50_ms']:.2f} ms, p99 {rep['latency_p99_ms']:.2f} ms, host-issue share "
-              f"{json.dumps(row['issue_share'])}, blocked {100 * row['blocked_share']:.2f}% of the tick wall, peak "
-              f"memory {row['peak_mem_bytes'] / 2**20:.1f} MiB over the run; {len(gcs)} Python collections "
-              f"({sum(g[1] for g in gcs):.2f} ms), {new_segments} new device segments | {smi}")
-        del bundle, server
+                server.submit(s.model_index, bundle.frame_for(s.name, 99))
+            server.drain()
+            torch.cuda.synchronize()
+            held, reserved = torch.cuda.memory_allocated() - m0, torch.cuda.memory_reserved() - v0
+            server.reset_metrics()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            kernels_pkg.reset_graph_launches()
+            n_graphs = sum(len(m.captured_graphs()) for m in bundle.models)
+            frames_in = {s.name: [bundle.frame_for(s.name, t) for t in range(AB_FRAMES)] for s in bundle.streams}
+            torch.cuda.synchronize()
+            seg0, _ = device_segments(torch)
+            clock.start()
+            for t in range(AB_FRAMES):
+                for s in bundle.streams:
+                    server.submit(s.model_index, frames_in[s.name][t])
+            server.pump()
+            outs = server.drain()
+            torch.cuda.synchronize()
+            gcs, new_segments = clock.stop(), device_segments(torch)[0] - seg0
+            rep = server.report()
+            peak = torch.cuda.max_memory_allocated() - mem0
+            eager = dict(ops.launches)
+            replayed = {n: kernels_pkg.graph_launches[n] for n in REPLACES}
+            captured = sum(len(m.captured_graphs()) for m in bundle.models) - n_graphs
+            if (replayed, eager) != ((want, dict.fromkeys(REPLACES, 0)) if jit else (dict.fromkeys(REPLACES, 0), want)):
+                raise AssertionError(f"{runner} run: replayed {replayed}, outside a graph {eager}, want {want}")
+            if captured or ex.slots_beyond_bound:
+                raise AssertionError(f"{runner} run: {captured} graphs captured in the timed run, "
+                                     f"{ex.slots_beyond_bound} slots beyond their bound")
+            got = {s.name: outs[s.name][-AB_FRAMES:] for s in bundle.streams}
+            if ref is None:
+                ref = got
+            for name, o_list in got.items():
+                for a, b in zip(o_list, ref[name]):
+                    if not all(torch.equal(x, y) for x, y in zip(_leaves_of(a), _leaves_of(b))):
+                        raise AssertionError(f"{runner} run: {name}'s outputs differ from the {AB_RUNS[0]} run's")
+            copies, copies_s = None, None
+            if jit:
+                mode = served_copies(torch)
+                t0 = time.perf_counter()
+                with mode:
+                    for t in range(4):
+                        for s in bundle.streams:
+                            server.submit(s.model_index, frames_in[s.name][t])
+                    server.pump()
+                    server.drain()
+                torch.cuda.synchronize()
+                copies, copies_s = sum(mode.rows.values()), time.perf_counter() - t0
+                if runner == "slots" and copies > 2 * 8 + 4 * 4:
+                    raise AssertionError(f"slots run: {copies} host copies in 12 frames: {mode.rows}")
+            row = {"runner": runner, "frames_per_s": rep["aggregate_fps"], "p50_ms": rep["latency_p50_ms"],
+                   "p99_ms": rep["latency_p99_ms"], "issue_share": _engine_shares(rep),
+                   "blocked_share": 1 - rep["overlap"]["overlap_efficiency"], "peak_mem_bytes": peak,
+                   "held_bytes": held, "reserved_bytes": reserved, "graphs": n_graphs,
+                   "slots": [r["slots"] for r in ex.slot_counts()], "host_copies_12_frames": copies, "gc": gcs,
+                   "new_device_segments": new_segments}
+            rows.append(row)
+            print(f"served {rep['frames']} frames, {runner:6s}: {rep['aggregate_fps']:.2f} frames/s, p50 "
+                  f"{rep['latency_p50_ms']:.2f} ms, p99 {rep['latency_p99_ms']:.2f} ms, host-issue share "
+                  f"{json.dumps(row['issue_share'])}, blocked {100 * row['blocked_share']:.2f}% of the tick wall, peak "
+                  f"memory {peak / 2**20:.1f} MiB over the run, held / reserved after the warm-up "
+                  f"{held / 2**20:.1f} / {reserved / 2**20:.1f} MiB ({n_graphs} graphs, slots {row['slots']}); "
+                  f"host copies and clones in 12 more frames {copies} ({copies_s and round(copies_s, 3)} s); "
+                  f"{len(gcs)} Python collections "
+                  f"({sum(g[1] for g in gcs):.2f} ms), {new_segments} new device segments | {smi}")
+            del bundle, server, ex, outs, got
+    for runner in ("parent", "slots", "eager"):
+        fps = [r["frames_per_s"] for r in rows if r["runner"] == runner]
+        print(f"served A/B, {runner}: {', '.join(f'{v:.2f}' for v in fps)} frames/s | {smi}")
     return rows
 
 
@@ -1738,8 +1910,9 @@ def launcher_phase(torch, smi, dev, ops, want):
        the two, the launch counters set to 0 just before each run: the
        eager run launches ``want`` (316/64/4) outside any graph, the graph
        run replays ``want`` (each replay counts the launches its graph
-       captured, ``kernels.graph_launches``) and launches outside a graph
-       only each graph's warm-up (the launches its capture recorded);
+       captured, ``kernels.graph_launches``) plus each graph's first
+       replay, made with its slot, and launches outside a graph only each
+       graph's warm-up (the launches its capture recorded);
        frames/s, p50/p99, each engine's host-issue share and the peak of
        ``max_memory_allocated`` over the run, for both;
     2. ``--cost measured --cost-cache``, then ``--cost online --replan
@@ -1782,9 +1955,12 @@ def launcher_phase(torch, smi, dev, ops, want):
         graphs = [g for m in bundle.models for _, g in m.captured_graphs()]
         warm = {n: sum(g.launches.get(n, 0) for g in graphs) for n in REPLACES}
         if key == "graphs":
-            if not bundle.server.executor.captures_graphs or replayed != want or eager != warm:
-                raise AssertionError(f"graph run: replayed {replayed} (want {want}), outside a graph {eager} "
-                                     f"(want the {len(graphs)} graphs' warm-ups {warm})")
+            # each graph: one eager run before its capture and one replay
+            # after it, when its slot is made; then the frames' replays
+            served = {n: want[n] + warm[n] for n in REPLACES}
+            if not bundle.server.executor.captures_graphs or replayed != served or eager != warm:
+                raise AssertionError(f"graph run: replayed {replayed} (want {want} + the {len(graphs)} graphs' "
+                                     f"first replays {warm}), outside a graph {eager} (want their warm-ups {warm})")
         elif eager != want or any(replayed.values()) or graphs:
             raise AssertionError(f"eager run: launched {eager} (want {want}), replayed {replayed}")
         outs[key] = {name: [[t.clone() for t in _leaves_of(o)] for o in o_list]
@@ -3585,6 +3761,115 @@ def dryrun_phase(smi):
     return {"rows": rows, "wall_s": wall, "h100_plan": _h100_plan_line(smi)}
 
 
+def served_main_path(torch, smi, dev, ops, frames, per_frame, clock):
+    """Step 4's served run on the main path (the module docstring), then
+    ``served_ab``. ``frames``: the run's frames per model; ``per_frame``:
+    each model's kernel launches a frame. Returns ``(want, launches,
+    report, rows)``: the launch counts the run must make and made, its
+    server report and the served rows."""
+    from repro_torch import kernels as kernels_pkg
+    from repro_torch.serve import build_server
+    from served_trace import device_segments
+
+    print(f"-- main path: build_server(img={IMG}, base={BASE}, n_pix=2, n_yolo=1, impl='pallas'), "
+          "each segment a replayed CUDA graph")
+    bundle = build_server(img=IMG, base=BASE, n_pix=2, n_yolo=1, impl="pallas", device=dev)
+    if not bundle.server.executor.captures_graphs:
+        raise AssertionError("the served run does not capture its segments in CUDA graphs")
+    impls = {i for b in bundle.plan.impl_bindings() for i in b}
+    routes = [[(s.engine, s.lo, s.hi) for s in segs] for segs in bundle.plan.segments]
+    print(f"plan: impls {sorted(impls)} routes {routes} cycle {bundle.plan.expected_cycle * 1e3:.3f} ms (analytic)")
+    if impls != {"pallas_fused"}:
+        raise AssertionError(f"plan binds {impls}, want only pallas_fused")
+    server = bundle.server
+    for s in bundle.streams:  # warm-up frame per stream (allocator, first launches, graph captures)
+        server.submit(s.model_index, bundle.frame_for(s.name, 99))
+    server.drain()
+    torch.cuda.synchronize()
+    server.reset_metrics()
+    warm_counts = len(server.executor.completions)
+    frames_in = {s.name: [bundle.frame_for(s.name, t) for t in range(4)] for s in bundle.streams}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    kernels_pkg.reset_graph_launches()
+    replays0 = {id(g): g.replays for m in bundle.models for _, g in m.captured_graphs()}
+    seg0, _ = device_segments(torch)
+    copies = served_copies(torch)
+    with served_copies(torch):  # a dispatch mode's first entry pays a one-time set-up: outside the clock
+        torch.zeros(1, device=dev).clone()
+    clock.start()
+    with copies:
+        for t in range(4):
+            for s in bundle.streams:
+                server.submit(s.model_index, frames_in[s.name][t])
+        server.pump()
+        outs = server.drain()
+    torch.cuda.synchronize()
+    gcs, new_segments = clock.stop(), device_segments(torch)[0] - seg0
+    # every launch of the run is a graph replay: each replay of a captured
+    # segment counts the launches its capture recorded
+    launches = {n: ops.launches[n] + kernels_pkg.graph_launches[n] for n in REPLACES}
+    rep = server.report()
+    print("launches:", json.dumps(launches), "of which outside a graph:", json.dumps(dict(ops.launches)))
+    for m in bundle.models:
+        for name, g in m.captured_graphs():
+            print(f"  graph {name}: {g.replays - replays0.get(id(g), 0)} replays x {json.dumps(g.launches)}")
+    # 8 Pix2Pix frames x 8 + 4 YOLOv8 frames x 63 = 316 at img 256
+    want = {n: frames["pix"] * per_frame["pix"][n] + frames["yolo"] * per_frame["yolo"][n] for n in REPLACES}
+    if launches != want or any(ops.launches.values()):
+        raise AssertionError(f"launch counts {launches} ({dict(ops.launches)} outside a graph), want {want}")
+    # each frame written once into its slot, each output leaf cloned once
+    # (Pix2Pix x; YOLOv8n p3, p4, p5), nothing between two segments; no
+    # capture in the run (its slots all made at the warm-up)
+    ex = server.executor
+    n_copies = sum(copies.rows.values())
+    graphs_now = sum(len(m.captured_graphs()) for m in bundle.models)
+    slot_rows = ex.slot_counts()
+    print(f"served_copies: {n_copies} host copies and clones of state leaves in {rep['frames']} frames (at most "
+          f"{2 * frames['pix'] + 4 * frames['yolo']}): {json.dumps(copies.rows)}; {graphs_now} graphs "
+          f"({len(replays0)} before the run), slots {json.dumps(slot_rows)}")
+    if n_copies > 2 * frames["pix"] + 4 * frames["yolo"] or any(
+            k.split()[0] in ("cat", "_to_copy") for k in copies.rows):
+        raise AssertionError(f"the served run copies state leaves between segments: {copies.rows}")
+    if graphs_now != len(replays0) or ex.slots_beyond_bound or any(r["slots"] > r["bound"] for r in slot_rows):
+        raise AssertionError(f"a capture in the timed run: {graphs_now} graphs against {len(replays0)}, "
+                             f"{ex.slots_beyond_bound} slots beyond their bound")
+    print(
+        f"served {rep['frames']} frames in {rep['wall_s'] * 1e3:.1f} ms: {rep['aggregate_fps']:.2f} frames/s, "
+        f"p50 {rep['latency_p50_ms']:.2f} ms, p99 {rep['latency_p99_ms']:.2f} ms; {len(gcs)} Python collections "
+        f"in the run ({sum(g[1] for g in gcs):.2f} ms: {gcs}), {new_segments} new device segments | {smi}"
+    )
+    shapes = {0: [(1, IMG, IMG, 3)], 1: [(1, IMG // d, IMG // d, 66) for d in (8, 16, 32)]}
+    worst = 0.0
+    for s in bundle.streams:
+        got_all = outs[s.name][-4:]
+        if len(outs[s.name]) - 1 != 4:
+            raise AssertionError(f"{s.name}: {len(outs[s.name]) - 1} outputs, want 4")
+        model = bundle.models[s.model_index]
+        for t, got in enumerate(got_all):
+            want_out = model.run_all(frames_in[s.name][t])
+            g = [got] if s.model_index == 0 else [got[k] for k in ("p3", "p4", "p5")]
+            w = [want_out] if s.model_index == 0 else [want_out[k] for k in ("p3", "p4", "p5")]
+            if [tuple(x.shape) for x in g] != shapes[s.model_index]:
+                raise AssertionError(f"{s.name}: shapes {[tuple(x.shape) for x in g]}")
+            for a_, b_ in zip(g, w):
+                if not torch.isfinite(a_).all():
+                    raise AssertionError(f"{s.name}: non-finite output")
+                torch.testing.assert_close(a_, b_, atol=5e-3, rtol=1e-2)
+                worst = max(worst, (a_ - b_).abs().max().item())
+    print(f"outputs: {len(bundle.streams)} streams x 4 frames finite, shapes right, "
+          f"max |served - xla run_all| = {worst:.2e} (atol 5e-3, rtol 1e-2); warm-up completions {warm_counts}")
+
+    served_rows = [{"jit_segments": True, "frames_per_s": rep["aggregate_fps"], "p50_ms": rep["latency_p50_ms"],
+                    "p99_ms": rep["latency_p99_ms"], "issue_share": _engine_shares(rep),
+                    "blocked_share": 1 - rep["overlap"]["overlap_efficiency"], "gc": gcs,
+                    "new_device_segments": new_segments, "host_copies": copies.rows, "slots": slot_rows}]
+    print(f"host-issue share {json.dumps(served_rows[0]['issue_share'])}, blocked "
+          f"{100 * served_rows[0]['blocked_share']:.2f}% of the tick wall")
+    served_rows += served_ab(torch, build_server, ops, dev, smi, want, clock)
+    return want, launches, rep, served_rows
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--json", help="also write every measured row to this file")
@@ -3609,9 +3894,8 @@ def main() -> int:
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
-    from repro_torch import kernels as kernels_pkg
     from repro_torch.serve import build_server
-    from served_trace import GcClock, device_segments
+    from served_trace import GcClock
 
     clock = GcClock()
     torch.backends.cudnn.allow_tf32 = False
@@ -3730,82 +4014,7 @@ def main() -> int:
               f"{100 * blk['bound_ms'] / blk['ms']:.2f}% of the bound | {smi}")
 
     lap("kernel calls of one frame pair")
-    print(f"-- main path: build_server(img={IMG}, base={BASE}, n_pix=2, n_yolo=1, impl='pallas'), "
-          "each segment a replayed CUDA graph")
-    bundle = build_server(img=IMG, base=BASE, n_pix=2, n_yolo=1, impl="pallas", device=dev)
-    if not bundle.server.executor.captures_graphs:
-        raise AssertionError("the served run does not capture its segments in CUDA graphs")
-    impls = {i for b in bundle.plan.impl_bindings() for i in b}
-    routes = [[(s.engine, s.lo, s.hi) for s in segs] for segs in bundle.plan.segments]
-    print(f"plan: impls {sorted(impls)} routes {routes} cycle {bundle.plan.expected_cycle * 1e3:.3f} ms (analytic)")
-    if impls != {"pallas_fused"}:
-        raise AssertionError(f"plan binds {impls}, want only pallas_fused")
-    server = bundle.server
-    for s in bundle.streams:  # warm-up frame per stream (allocator, first launches, graph captures)
-        server.submit(s.model_index, bundle.frame_for(s.name, 99))
-    server.drain()
-    torch.cuda.synchronize()
-    server.reset_metrics()
-    warm_counts = len(server.executor.completions)
-    frames_in = {s.name: [bundle.frame_for(s.name, t) for t in range(4)] for s in bundle.streams}
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    kernels_pkg.reset_graph_launches()
-    replays0 = {id(g): g.replays for m in bundle.models for _, g in m.captured_graphs()}
-    seg0, _ = device_segments(torch)
-    clock.start()
-    for t in range(4):
-        for s in bundle.streams:
-            server.submit(s.model_index, frames_in[s.name][t])
-    server.pump()
-    outs = server.drain()
-    torch.cuda.synchronize()
-    gcs, new_segments = clock.stop(), device_segments(torch)[0] - seg0
-    # every launch of the run is a graph replay: each replay of a captured
-    # segment counts the launches its capture recorded
-    launches = {n: ops.launches[n] + kernels_pkg.graph_launches[n] for n in REPLACES}
-    rep = server.report()
-    print("launches:", json.dumps(launches), "of which outside a graph:", json.dumps(dict(ops.launches)))
-    for m in bundle.models:
-        for name, g in m.captured_graphs():
-            print(f"  graph {name}: {g.replays - replays0.get(id(g), 0)} replays x {json.dumps(g.launches)}")
-    # 8 Pix2Pix frames x 8 + 4 YOLOv8 frames x 63 = 316 at img 256
-    want = {n: frames["pix"] * per_frame["pix"][n] + frames["yolo"] * per_frame["yolo"][n] for n in REPLACES}
-    if launches != want or any(ops.launches.values()):
-        raise AssertionError(f"launch counts {launches} ({dict(ops.launches)} outside a graph), want {want}")
-    print(
-        f"served {rep['frames']} frames in {rep['wall_s'] * 1e3:.1f} ms: {rep['aggregate_fps']:.2f} frames/s, "
-        f"p50 {rep['latency_p50_ms']:.2f} ms, p99 {rep['latency_p99_ms']:.2f} ms; {len(gcs)} Python collections "
-        f"in the run ({sum(g[1] for g in gcs):.2f} ms: {gcs}), {new_segments} new device segments | {smi}"
-    )
-    shapes = {0: [(1, IMG, IMG, 3)], 1: [(1, IMG // d, IMG // d, 66) for d in (8, 16, 32)]}
-    worst = 0.0
-    for s in bundle.streams:
-        got_all = outs[s.name][-4:]
-        if len(outs[s.name]) - 1 != 4:
-            raise AssertionError(f"{s.name}: {len(outs[s.name]) - 1} outputs, want 4")
-        model = bundle.models[s.model_index]
-        for t, got in enumerate(got_all):
-            want_out = model.run_all(frames_in[s.name][t])
-            g = [got] if s.model_index == 0 else [got[k] for k in ("p3", "p4", "p5")]
-            w = [want_out] if s.model_index == 0 else [want_out[k] for k in ("p3", "p4", "p5")]
-            if [tuple(x.shape) for x in g] != shapes[s.model_index]:
-                raise AssertionError(f"{s.name}: shapes {[tuple(x.shape) for x in g]}")
-            for a_, b_ in zip(g, w):
-                if not torch.isfinite(a_).all():
-                    raise AssertionError(f"{s.name}: non-finite output")
-                torch.testing.assert_close(a_, b_, atol=5e-3, rtol=1e-2)
-                worst = max(worst, (a_ - b_).abs().max().item())
-    print(f"outputs: {len(bundle.streams)} streams x 4 frames finite, shapes right, "
-          f"max |served - xla run_all| = {worst:.2e} (atol 5e-3, rtol 1e-2); warm-up completions {warm_counts}")
-
-    served_rows = [{"jit_segments": True, "frames_per_s": rep["aggregate_fps"], "p50_ms": rep["latency_p50_ms"],
-                    "p99_ms": rep["latency_p99_ms"], "issue_share": _engine_shares(rep),
-                    "blocked_share": 1 - rep["overlap"]["overlap_efficiency"], "gc": gcs,
-                    "new_device_segments": new_segments}]
-    print(f"host-issue share {json.dumps(served_rows[0]['issue_share'])}, blocked "
-          f"{100 * served_rows[0]['blocked_share']:.2f}% of the tick wall")
-    served_rows += served_ab(torch, build_server, ops, dev, smi, want, clock)
+    want, launches, rep, served_rows = served_main_path(torch, smi, dev, ops, frames, per_frame, clock)
 
     # after the served run: the profiler's tracing must not tax its launches
     split_rows, split_totals = block_split(torch, ops, bench, calls, frames)

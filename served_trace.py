@@ -3,16 +3,22 @@
 Builds ``chip_smoke.py``'s main path (``build_server(img=256, base=64,
 n_pix=2, n_yolo=1, impl="pallas")`` on the card), serves one warm-up frame
 per stream, then ``--runs`` runs of 4 frames per stream as that script's
-served run does, with every segment a replayed CUDA graph (``--jit on``) or
-the eager ops (``--jit off``). For each run it prints frames/s, each tick's
+served run does, with every segment a replayed CUDA graph (``--jit on``:
+each flight's state in a slot, or with ``--runner parent`` the parent
+tree's runner, ``chip_smoke.ParentSegment``, which copies every state leaf
+in and clones every output out) or the eager ops (``--jit off``). For each
+run it prints frames/s, each tick's
 wall and host-issue time, each engine's host-issue share, the Python
 garbage collections inside the run (generation, ms) and the caching
 allocator's new device segments (``cudaMalloc`` calls). ``--profile K``
 traces run K under ``torch.profiler`` (CPU and CUDA) and prints the host
-operations with the most time of their own. The last line is a JSON object
-of every run. Run it from the root of a checkout, on a CUDA card:
+operations with the most time of their own, and the host time of the
+named operations (``NAMED_HOST_OPS``: copies, clones, ``cudaMalloc``,
+``cudaGraphLaunch``). The last line is a JSON object of every run. Run it
+from the root of a checkout, on a CUDA card:
 
-    python3 served_trace.py --jit on --runs 5
+    python3 served_trace.py --jit on --runs 5 --profile 4
+    python3 served_trace.py --jit on --runner parent --runs 5 --profile 4
     python3 served_trace.py --jit off --runs 2 --profile 0
 
 Without a CUDA card it exits 2.
@@ -29,6 +35,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 IMG, BASE, FRAMES = 256, 64, 4
+# host operations whose time a traced run reports by name: the state's
+# copies in and clones out, the allocator's device mallocs, graph replays
+NAMED_HOST_OPS = ("aten::copy_", "aten::clone", "aten::cat", "aten::record_stream", "cudaMemcpyAsync",
+                  "cudaMalloc", "cudaGraphLaunch")
 
 
 class GcClock:
@@ -77,11 +87,22 @@ def top_host_ops(prof, n=20):
     return rows[:n], device_us
 
 
+def named_host_ops(prof):
+    """``{op: (calls, own host ms, total host ms)}`` of ``NAMED_HOST_OPS``."""
+    out = {}
+    for e in prof.key_averages():
+        if e.key in NAMED_HOST_OPS:
+            out[e.key] = (e.count, e.self_cpu_time_total / 1e3, e.cpu_time_total / 1e3)
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--jit", choices=("on", "off"), default="on")
     p.add_argument("--runs", type=int, default=5)
     p.add_argument("--profile", type=int, default=None, help="trace this run (0 = the first) under torch.profiler")
+    p.add_argument("--runner", choices=("slots", "parent"), default="slots",
+                   help="with --jit on: this tree's slots, or the parent tree's copying runner")
     args = p.parse_args()
 
     import torch
@@ -103,8 +124,16 @@ def main() -> int:
     kernel.library()
     clock = GcClock()
     jit = args.jit == "on"
+    if args.runner == "parent":
+        import contextlib
+
+        from chip_smoke import parent_runner
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(parent_runner())  # for the whole process
     bundle = build_server(img=IMG, base=BASE, n_pix=2, n_yolo=1, impl="pallas", device="cuda", jit_segments=jit)
     server = bundle.server
+    print(f"runner: {args.runner if jit else 'eager'}, slots {server.executor._use_slots}")
     if server.executor.captures_graphs != jit:
         raise AssertionError(f"jit {args.jit} but captures_graphs {server.executor.captures_graphs}")
     for s in bundle.streams:  # warm-up frame per stream (allocator, first launches, graph captures)
@@ -145,7 +174,8 @@ def main() -> int:
              round(sum(w[0] for w in (ts.engine_wait or {}).values()) * 1e3, 3))
             for ts in server.executor.tick_stats[tick0:]
         ]
-        row = {"run": r, "jit": jit, "profiled": prof is not None, "frames": rep["frames"],
+        row = {"run": r, "jit": jit, "runner": args.runner if jit else "eager", "profiled": prof is not None,
+               "frames": rep["frames"],
                "wall_ms": rep["wall_s"] * 1e3, "frames_per_s": rep["aggregate_fps"],
                "p50_ms": rep["latency_p50_ms"], "p99_ms": rep["latency_p99_ms"],
                "issue_share": {e: w["issue_frac"] for e, w in (rep.get("engines") or {}).items()},
@@ -165,6 +195,9 @@ def main() -> int:
             print(f"  device time of the CUDA kernels {device_us / 1e3:.3f} ms in a {row['wall_ms']:.2f} ms run")
             for us, c, k in top:
                 print(f"  {us / 1e3:9.3f} ms host  x{c:<5d} {k[:90]}")
+            row["named_host_ops"] = named_host_ops(prof)
+            for k, (c, own, total) in row["named_host_ops"].items():
+                print(f"  named: {k:22s} x{c:<5d} {own:9.3f} ms own, {total:9.3f} ms with its children")
     print(json.dumps({"smi": smi, "runs": runs}))
     return 0
 

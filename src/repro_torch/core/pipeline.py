@@ -7,9 +7,10 @@ segments of a ``PlanIR`` over the engines. ``pix2pix_staged`` and
 with its ``pallas_fused`` variant (the fused CUDA serving kernels).
 
 ``StagedModel.jitted_segment_fn`` is the counterpart of the JAX package's
-jitted segments: a ``CapturedSegment`` runner that captures the segment in
-a CUDA graph once per state structure and replays it (one launch of the
-whole segment instead of one per op).
+jitted segments, whose state is donated: a ``CapturedSegment`` runner that
+captures the segment in a CUDA graph once per set of state buffers, on
+those buffers, and replays it (one launch of the whole segment instead of
+one per op, and no copy of the state in or out).
 
 ``TwoModelPipeline`` executes a HaX-CoNN swap schedule in steady state with
 double buffering (the paper's DeepStream analogue):
@@ -33,45 +34,66 @@ from ..kernels import graph_launches, launch_counters
 from ..nn.module import tree_def, tree_leaves, tree_map, tree_unflatten
 from .graph import LayerGraph
 
-# CUDA-graph memory pools by (device, CUDA stream), each with the graphs
-# captured into it, and the side stream each device captures on. Graphs
-# that share a pool may reuse each other's intermediate memory, which is
-# safe only while they never run at once; every graph replays on the
-# stream it was captured for, so the graphs of one pool are ordered by
-# that stream.
-_POOLS: dict[tuple[int, int], tuple[Any, "weakref.WeakSet[CapturedGraph]"]] = {}
+# CUDA-graph memory pools by (device, CUDA stream) or by owner (a served
+# flight's slot, ``serve.executor``), each with the graphs captured into
+# it, and the side stream each device captures on. Graphs that share a pool
+# may reuse each other's intermediate memory, which is safe only while they
+# never run at once and none of them keeps an output past another's replay:
+# a stream's graphs are ordered by that stream and their outputs are read
+# before the next replay (the decode step's logits are cloned); a slot's
+# graphs run one after another, for one flight at a time, and their outputs
+# are the slot's own buffers.
+_POOLS: dict[tuple, tuple[Any, "weakref.WeakSet[CapturedGraph]"]] = {}
 _CAPTURE_STREAMS: dict[int, Any] = {}
 
 
-def _graph_pool(stream) -> tuple[Any, "weakref.WeakSet[CapturedGraph]"]:
-    """The stream's pool handle and the set of live graphs captured into
-    it. Once every graph of a pool is gone the caching allocator releases
-    the pool and refuses a capture into it, so the stream starts a new
-    one (a server that dropped all of a stream's graphs after a re-plan
-    captures again)."""
-    key = (stream.device.index, stream.cuda_stream)
+def captures_on(device: torch.device) -> bool:
+    """Whether segments run on ``device`` as captured CUDA graphs: on the
+    card. On the CPU they run ``segment_fn`` (the caller asked for the
+    CPU)."""
+    return device.type == "cuda"
+
+
+def _graph_pool(stream, owner=None) -> tuple[Any, "weakref.WeakSet[CapturedGraph]"]:
+    """The pool handle and the set of live graphs captured into it: the
+    stream's pool, or with ``owner`` (a hashable token) the owner's own,
+    whatever stream its graphs replay on. Once every graph of a pool is
+    gone the caching allocator releases the pool and refuses a capture into
+    it, so the key starts a new one (a server that dropped all of a
+    stream's graphs after a re-plan captures again)."""
+    key = (stream.device.index, stream.cuda_stream) if owner is None else ("owner", owner)
     entry = _POOLS.get(key)
     if entry is None or not entry[1]:
+        for k in [k for k, (_, graphs) in _POOLS.items() if not graphs]:
+            del _POOLS[k]
         entry = _POOLS[key] = (torch.cuda.graph_pool_handle(), weakref.WeakSet())
     return entry
 
 
 def _capture_stream(device: torch.device):
+    """The device's side stream for captures (None off the card)."""
+    if device.type != "cuda":
+        return None
     if device.index not in _CAPTURE_STREAMS:
         _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
     return _CAPTURE_STREAMS[device.index]
 
 
-def capture_graph(stream, side, run: Callable, what: str):
+def _current_stream(device: torch.device):
+    return torch.cuda.current_stream(device) if device.type == "cuda" else None
+
+
+def capture_graph(stream, side, run: Callable, what: str, owner=None):
     """``run()`` captured into a ``torch.cuda.CUDAGraph`` on the side
-    stream ``side``, into ``stream``'s pool (``_graph_pool``): returns the
-    graph, ``run``'s outputs and the pool's set of graphs, to which the
-    caller adds its ``CapturedGraph``. A capture that fails raises, naming
-    ``what``. capture_begin/end rather than torch.cuda.graph, whose entry
-    also empties the allocator's cache: every later allocation would pay a
-    cudaMalloc again, on the hot path when a capture happens there."""
+    stream ``side``, into ``stream``'s pool or ``owner``'s (``_graph_pool``):
+    returns the graph, ``run``'s outputs and the pool's set of graphs, to
+    which the caller adds its ``CapturedGraph``. A capture that fails
+    raises, naming ``what``. capture_begin/end rather than torch.cuda.graph,
+    whose entry also empties the allocator's cache: every later allocation
+    would pay a cudaMalloc again, on the hot path when a capture happens
+    there."""
     graph = torch.cuda.CUDAGraph()
-    pool, pool_graphs = _graph_pool(stream)
+    pool, pool_graphs = _graph_pool(stream, owner)
     torch.cuda.synchronize(stream.device)
     try:
         with torch.cuda.stream(side):
@@ -104,18 +126,23 @@ class CapturedGraph:
 
 class CapturedSegment:
     """CUDA-graph runner of one segment: ``(params, state) -> state`` like
-    ``segment_fn``, on a state of CUDA tensors.
+    ``segment_fn``, on a state of CUDA tensors, with the state donated as
+    the JAX executor's jitted segments take it (``donate_argnums=(1,)``).
 
-    The first call per (params, state structure, current stream) runs the
-    segment once eagerly on a side stream (the kernels' build, load and
-    shared-memory attributes stay out of the graph), then captures it into
-    a ``torch.cuda.CUDAGraph`` whose memory pool is shared by every graph
-    of that stream (``_graph_pool``). Each call copies the state into the
-    graph's input buffers, replays the graph on the current stream and
-    copies its outputs out on that stream — the next replay overwrites
-    them, while the executor may keep two frames of one segment in flight
-    and slices coalesced outputs apart. A state leaf the segment passes
-    through unchanged comes back as the caller's own tensor.
+    A graph is captured once per key: the params' identity, the current
+    stream, the state's tree and each state leaf's shape, dtype, strides
+    and address. It is captured directly on the leaves it is given (after
+    one eager run of the segment on them, on a side stream, so the
+    kernels' build, load and shared-memory attributes stay out of the
+    graph; the segment is pure and writes none of its inputs), into the
+    pool of ``owner`` where one is given (a served flight's slot) and a
+    pool of its own otherwise. A call replays the graph and returns its
+    output tree as it is: the leaves the graph writes (the same tensors at
+    every replay) and the input leaves it passes through. So nothing is
+    copied in or out: a caller that runs the next segment on that output
+    replays the next segment's graph on these buffers, as
+    ``serve.executor`` chains a flight's segments through its slot, and a
+    caller that keeps an output past the next replay clones it.
 
     A capture that fails (a host sync such as ``.item()`` or ``.cpu()``, or
     a branch on a tensor value, inside the segment) raises, naming the
@@ -137,41 +164,51 @@ class CapturedSegment:
 
     def __call__(self, params, state):
         leaves = tree_leaves(state)
-        if not leaves or leaves[0].device.type != "cuda":
+        if not leaves or not captures_on(leaves[0].device):
             return self.fn(params, state)
-        stream = torch.cuda.current_stream(leaves[0].device)
+        return self.replay(self.graph_for(params, state))
+
+    def graph_for(self, params, state, owner=None) -> CapturedGraph:
+        """The graph of ``state``'s buffers, captured on them at the first
+        call (into ``owner``'s pool, or a pool of its own)."""
+        leaves = tree_leaves(state)
+        stream = _current_stream(leaves[0].device)
         key = (
             id(params),
-            stream.cuda_stream,
+            None if stream is None else stream.cuda_stream,
             tree_def(state),
-            tuple((tuple(t.shape), t.dtype, t.device) for t in leaves),
+            tuple((tuple(t.shape), t.dtype, t.stride(), t.device, t.data_ptr()) for t in leaves),
         )
         g = self.graphs.get(key)
         if g is None:
-            g = self.graphs[key] = self._capture(params, state, leaves, stream)
-        for buf, t in zip(g.static_in, leaves):
-            buf.copy_(t)
+            g = self.graphs[key] = self._capture(params, state, leaves, stream, owner)
+        return g
+
+    def replay(self, g: CapturedGraph):
+        """Replay ``g`` on the current stream; returns its output tree."""
         g.graph.replay()
         g.replays += 1
         graph_launches.update(g.launches)
-        outs = [
-            leaves[a] if a is not None else o.clone()
-            for o, a in zip(tree_leaves(g.static_out), g.alias)
-        ]
-        return tree_unflatten(g.static_out, outs)
+        return g.static_out
 
-    def _capture(self, params, state, leaves, stream) -> CapturedGraph:
+    def drop(self, g: CapturedGraph) -> None:
+        """Forget ``g`` (its memory returns to its pool once nothing holds it)."""
+        for k in [k for k, v in self.graphs.items() if v is g]:
+            del self.graphs[k]
+
+    def _capture(self, params, state, leaves, stream, owner) -> CapturedGraph:
         side = _capture_stream(leaves[0].device)
-        side.wait_stream(stream)
+        if side is not None:
+            side.wait_stream(stream)
+        static_state = tree_unflatten(state, leaves)  # fresh containers, the caller's leaves
         with torch.cuda.stream(side):
-            static_in = [t.clone() for t in leaves]
-            static_state = tree_unflatten(state, static_in)
             self.fn(params, static_state)  # warm-up: first-use work stays out of the graph
         counters = launch_counters()
         before = {pkg: dict(c) for pkg, c in counters.items()}
         try:
             graph, static_out, pool_graphs = capture_graph(stream, side, lambda: self.fn(params, static_state),
-                                                           f"segment {self.name}")
+                                                           f"segment {self.name}",
+                                                           owner if owner is not None else object())
         finally:
             launched = {}
             for pkg, c in counters.items():
@@ -179,9 +216,9 @@ class CapturedSegment:
                     if v != before[pkg][k]:
                         launched[k] = v - before[pkg][k]
                 c.update(before[pkg])
-        ids = {id(t): i for i, t in enumerate(static_in)}
+        ids = {id(t): i for i, t in enumerate(leaves)}
         alias = [ids.get(id(o)) for o in tree_leaves(static_out)]
-        captured = CapturedGraph(graph, params, static_in, static_out, alias, launched)
+        captured = CapturedGraph(graph, params, list(leaves), static_out, alias, launched)
         pool_graphs.add(captured)
         return captured
 
@@ -285,9 +322,10 @@ class StagedModel:
     def jitted_segment_fn(self, lo, hi, impl: str = "xla", holder=None) -> "CapturedSegment":
         """The captured form of ``segment_fn`` (a ``CapturedSegment``),
         cached on the model so every executor over the same span shares
-        its CUDA graphs, one per state structure and stream (so one per
-        batch bucket). ``holder`` (an executor) takes a reference to the
-        runner, which ``drop_graphs`` gives back."""
+        it, with a CUDA graph per set of state buffers and stream (an
+        executor's slots, each holding one batch bucket). ``holder`` (an
+        executor) takes a reference to the runner, which ``drop_graphs``
+        gives back."""
         cache = self.__dict__.setdefault("_graph_runners", {})
         key = (lo, hi, impl)
         if key not in cache:
@@ -302,9 +340,9 @@ class StagedModel:
         holder's CUDA streams, as ``cuda_stream`` handles) go, and the
         runner with all its graphs leaves the model's cache once no other
         holder runs the span. Without a holder the runner goes whatever
-        holds it. The freed graphs' memory returns to their stream's pool
-        for later captures (with the pool's last graph, to the caching
-        allocator: the stream's next capture starts a new pool). Returns
+        holds it. The freed graphs' memory returns to their pool for later
+        captures (with the pool's last graph, to the caching allocator: the
+        next capture into it starts a new pool). Returns
         how many graphs went. The caller makes sure no replay of them is
         still on the card; an executor that runs the span again takes the
         runner anew (captured anew if it went)."""

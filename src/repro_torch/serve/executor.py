@@ -26,12 +26,21 @@ steady-state cycle in two phases:
     *enqueued*: the host keeps issuing the other engine's segments while
     earlier ones compute, so counter-phased engines genuinely overlap.
     With ``jit_segments=True`` (the default) each (model, span, impl)
-    segment on the card is additionally captured in a CUDA graph per state
-    structure (``StagedModel.jitted_segment_fn``) and replayed — one
-    launch per engine call instead of one per op. The replay runs the same
-    kernels with the same launches as the eager op sequence, so its
-    outputs are bit-identical to ``jit_segments=False`` (eager
-    ``segment_fn``); on the CPU both run ``segment_fn``.
+    segment on the card is additionally captured in a CUDA graph
+    (``StagedModel.jitted_segment_fn``) and replayed — one launch per
+    engine call instead of one per op. The replay runs the same kernels
+    with the same launches as the eager op sequence, so its outputs are
+    bit-identical to ``jit_segments=False`` (eager ``segment_fn``); on the
+    CPU both run ``segment_fn``. As the JAX executor's jitted segments take
+    their state donated, a captured flight's state lives in a *slot*
+    (``Slot``): buffers its route's graphs were captured on, segment k's
+    graph reading where segment k-1's wrote. Admission writes each frame
+    once into its rows of the slot's stage-0 buffers, completion clones
+    the finalized outputs once, and nothing copies the state between two
+    segments. Each (model, route, stage-0 state structure) keeps as many
+    slots as it can have flights in flight (``slot_bound``), all captured
+    when the executor first sees it or in ``prepare_plan``, so no capture
+    lands on a later tick.
   * **resolve** — frames whose route finished are completed: the host
     waits for their last segment's event (the only synchronization point
     of the tick), slices merged groups apart, and stamps latencies.
@@ -75,11 +84,13 @@ batch-independent models — see ``Pix2PixConfig(norm="instance")``).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Any, Callable
 
 import torch
 
+from ..core import pipeline as _pipeline
 from ..core.pipeline import StagedModel, TickLog
 from ..core.plan_ir import PlanIR, PlanSegment, ir_from_routes
 from ..core.scheduler import NModelPlan
@@ -113,6 +124,7 @@ class Flight:
     held: bool = False  # the coalescer delayed this flight waiting for co-riders
     t_issue: float = 0.0  # admission wall clock (feeds the service-time EMA)
     ready: Any = None  # CUDA event: the state is complete once it fires (None on CPU)
+    slot: Any = None  # the Slot the state lives in (captured segments), else None
 
 
 @dataclasses.dataclass
@@ -152,6 +164,43 @@ class SwapEvent:
     partitions: tuple[int, ...]  # first cut per model (legacy view)
     expected_cycle: float
     cuts: tuple[tuple[int, ...], ...] = ()  # full k-cut vectors per model
+
+
+@dataclasses.dataclass(eq=False)
+class Slot:
+    """The buffers one flight's state lives in while its route runs as
+    captured graphs, and those graphs. ``state`` is the stage-0 buffer
+    tree (zeros at first; admission writes each frame into its rows);
+    ``graphs[k]`` is segment k's graph, captured on the leaves in its
+    ``static_in``: segment k-1's outputs where the engine hand-off keeps
+    the tensors (one card), else the tensors the first hand-off across
+    devices made, which later ones are copied into. One flight at a time
+    holds a slot; its graphs share one memory pool (``token``), as they
+    never run at once."""
+
+    key: tuple  # (model, route key, stage-0 state structure)
+    token: int  # the graphs' memory pool (``core.pipeline._graph_pool``)
+    state: Any
+    graphs: list
+    runners: list  # per stage: the CapturedSegment whose graph it is
+    rows: int = 0  # leading-axis rows the last flight wrote into ``state``
+    busy: bool = False
+
+
+# slot tokens, unique across executors: two replicas' slots never share a
+# graph pool (their graphs may run at once)
+_SLOT_TOKENS = itertools.count(1)
+
+
+def _route_key(route) -> tuple:
+    """What a slot's graphs depend on in a route: each segment's span,
+    implementation and engine."""
+    return tuple((s.lo, s.hi, getattr(s, "impl", "xla"), s.engine) for s in route)
+
+
+def _struct_key(state) -> tuple:
+    leaves = tree_leaves(state)
+    return tree_def(state), tuple((tuple(t.shape), t.dtype) for t in leaves)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -272,10 +321,20 @@ class StreamExecutor:
         # one CUDA stream per engine when the models live on a card; on the
         # CPU every op completes before it returns and no stream is needed
         device = _param_device(models[0]) if models else torch.device("cpu")
+        self._device = device
         self._engine_streams = (
             [torch.cuda.Stream(device) for _ in self.place_fns] if device.type == "cuda" else None
         )
         self.jit_segments = jit_segments
+        # captured segments run on slots (``Slot``): keyed (model, route
+        # key, stage-0 structure), each key's slots made and captured
+        # together (``slot_bound``); routes prepared for a coming swap keep
+        # theirs until the swap
+        self._use_slots = self.captures_graphs
+        self._slots: dict[tuple, list[Slot]] = {}
+        self._slot_bounds: dict[tuple, int] = {}
+        self._prepared_routes: set[tuple[int, tuple]] = set()
+        self.slots_beyond_bound = 0  # slots made past their key's bound (each a capture on the hot path)
         # keyed by (model, lo, hi, impl, bucket): hot-swapped plans whose
         # spans (and implementation bindings) coincide with an old plan's
         # reuse the same (possibly compiled) runner; the bucket key gives
@@ -364,9 +423,9 @@ class StreamExecutor:
         future segments run. The old plan's spans that the new one does not
         run keep their runners until the last flight on them completes;
         then ``tick`` drops the runners and their captured graphs
-        (``StagedModel.drop_graphs``), so a server that re-plans for good
-        holds the graphs of its live routes only. Returns the new plan
-        revision.
+        (``StagedModel.drop_graphs``), and the old routes' slots with
+        theirs, so a server that re-plans for good holds the graphs of its
+        live routes only. Returns the new plan revision.
         """
         if tuple(new_ir.models) != tuple(self.plan.models):
             raise ValueError(
@@ -380,6 +439,7 @@ class StreamExecutor:
         self._check_span_staging(new_ir, self.models)
         rev = self.plan.revision + 1
         self._retired |= _spans(self.plan.segments)
+        self._prepared_routes.clear()
         self.plan = new_ir.with_revision(rev)
         self.swap_events.append(
             SwapEvent(
@@ -401,12 +461,17 @@ class StreamExecutor:
         segment once on its engine's stream — seeding the runner cache, the
         runners' CUDA graphs (captured here, on the calling thread, for the
         stream that will replay them) and the kernels' first-use costs (the
-        old plan's runners stay valid for in-flight frames). Returns the
-        number of segment executions warmed; silently skips models that
-        have not seen a frame yet.
+        old plan's runners stay valid for in-flight frames). With captured
+        segments it makes and captures the new routes' slots instead, as
+        many per state shape as can be in flight (``_prepare_slots``), each
+        run once on zeros. Returns the number of (state shape, segment)
+        pairs warmed; silently skips models that have not seen a frame
+        yet.
         """
         new_ir.validate_against([m.n_layers for m in self.models])
         self._check_span_staging(new_ir, self.models)
+        if self._use_slots:
+            return self._prepare_slots(new_ir)
         warmed = 0
         for mi, segs in enumerate(new_ir.segments):
             model = self.models[mi]
@@ -433,6 +498,131 @@ class StreamExecutor:
                     if device.type == "cuda":
                         torch.cuda.synchronize(device)
         return warmed
+
+    def _prepare_slots(self, new_ir: PlanIR) -> int:
+        """``prepare_plan`` for captured segments: every slot the new routes
+        can hold in flight, for each stage-0 struct seen so far and each
+        bucket variant, made and captured (``_slots_of``). Returns the
+        (struct, segment) pairs warmed."""
+        warmed = 0
+        for mi, segs in enumerate(new_ir.segments):
+            route = tuple(segs)
+            self._prepared_routes.add((mi, _route_key(route)))
+            for _, struct in self._state_structs[mi]:
+                for bstruct in self._warm_structs(mi, struct):
+                    merged = bstruct is not struct or _leading(struct) > 1
+                    self._slots_of(mi, route, bstruct, merged)
+                    warmed += len(route)
+        return warmed
+
+    def slot_bound(self, mi: int, route, merged: bool) -> int:
+        """How many flights of one (model, route, stage-0 structure) can be
+        in flight at once: a flight runs one segment a tick and gives its
+        slot back in the tick of its last, after that tick's admissions,
+        so the route's length times the flights admitted a tick — one
+        merged flight, else one a stream up to ``microbatch`` (the
+        coalescer's ``max_batch`` for degraded frames)."""
+        if merged:
+            per_tick = 1
+        elif self.batching.enabled and self.merge_batches[mi]:
+            per_tick = self.batching.max_batch
+        else:
+            per_tick = min(self.microbatch, max(1, len(self._streams_of[mi])))
+        return len(route) * per_tick
+
+    def _slots_of(self, mi: int, route, struct, merged: bool) -> list[Slot]:
+        """The slots of (model, route, stage-0 ``struct``): at the first
+        call ``slot_bound`` of them, each captured through the route."""
+        key = (mi, _route_key(route), _struct_key(struct))
+        slots = self._slots.get(key)
+        if slots is None:
+            slots = self._slots[key] = []
+            self._slot_bounds[key] = self.slot_bound(mi, route, merged)
+            for _ in range(self._slot_bounds[key]):
+                slots.append(self._new_slot(key, route, struct))
+        return slots
+
+    def _new_slot(self, key: tuple, route, struct) -> Slot:
+        """A slot of zeros with its route's graphs captured on it and each
+        replayed once (the graph's first launch, and the pool's first
+        allocations, stay off the hot path), one segment at a time on its
+        engine's stream with the card idle in between."""
+        state = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=self._device), struct)
+        slot = Slot(key, next(_SLOT_TOKENS), state, [None] * len(route), [None] * len(route))
+        bucket = _leading(state)
+        for stage, seg in enumerate(route):
+            if self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
+            with torch.cuda.stream(self._stream_of(seg.engine)):
+                state = self._slot_segment(slot, stage, seg, self.place_fns[seg.engine](state), bucket)
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        return slot
+
+    def _slot_segment(self, slot: Slot, stage: int, seg: PlanSegment, state, bucket: int):
+        """Replay segment ``stage`` of the slot's route on ``state`` (the
+        previous segment's outputs after the engine hand-off), capturing it
+        on those leaves at the first call. A hand-off that moved the state
+        to other tensors (another device) is copied into the leaves the
+        graph reads."""
+        g = slot.graphs[stage]
+        if g is None:
+            mi = slot.key[0]
+            runner = self._segment_runner(mi, seg, bucket)
+            g = slot.graphs[stage] = runner.graph_for(self.models[mi].params, state, owner=slot.token)
+            slot.runners[stage] = runner
+        else:
+            for buf, t in zip(g.static_in, tree_leaves(state)):
+                if buf is not t:
+                    buf.copy_(t)
+        return slot.runners[stage].replay(g)
+
+    def _take_slot(self, mi: int, route, states: list, bucket: int, merged: bool) -> Slot:
+        """A free slot for a flight of ``states`` (one per member, in row
+        order) padded to ``bucket`` rows, with each member's leaves written
+        into its rows of the stage-0 buffers; rows a larger earlier flight
+        left beyond the new ones are zeroed (pad rows stay zero)."""
+        struct = tree_map(lambda a: TensorStruct((bucket,) + tuple(a.shape[1:]), a.dtype), states[0])
+        slots = self._slots_of(mi, route, struct, merged)
+        slot = next((s for s in slots if not s.busy), None)
+        if slot is None:
+            self.slots_beyond_bound += 1
+            slot = self._new_slot(slots[0].key, route, struct)
+            slots.append(slot)
+        slot.busy = True
+        bufs = tree_leaves(slot.state)
+        off = 0
+        for st in states:
+            leaves = tree_leaves(st)
+            n = _leading(st)
+            for buf, t in zip(bufs, leaves):
+                (buf if n == bucket else buf[off : off + n]).copy_(t)
+            off += n
+        if slot.rows > off:
+            for buf in bufs:
+                buf[off : slot.rows].zero_()
+        slot.rows = off
+        return slot
+
+    def _drop_slots(self, live_routes: set) -> None:
+        """Drop the slots of routes no plan, degraded route, prepared plan
+        or flight runs, with their graphs (whose memory pools go with the
+        last of them)."""
+        for key in [k for k in self._slots if k[:2] not in live_routes]:
+            del self._slot_bounds[key]
+            for slot in self._slots.pop(key):
+                for runner, g in zip(slot.runners, slot.graphs):
+                    if g is not None:
+                        runner.drop(g)
+
+    def slot_counts(self) -> list[dict]:
+        """Per slot key: the model, route, stage-0 shapes, slots held, how
+        many are in flight and the bound."""
+        return [
+            {"model": key[0], "route": [list(r) for r in key[1]], "shapes": [list(s) for s, _ in key[2][1]],
+             "slots": len(slots), "busy": sum(s.busy for s in slots), "bound": self._slot_bounds[key]}
+            for key, slots in self._slots.items()
+        ]
 
     def _warm_structs(self, mi: int, struct):
         """The state structs a plan warmup must compile for: the seen
@@ -479,7 +669,7 @@ class StreamExecutor:
     def captures_graphs(self) -> bool:
         """Whether segments run as captured CUDA graphs (``jit_segments``
         with the models on a card)."""
-        return self.jit_segments and self._engine_streams is not None
+        return self.jit_segments and _pipeline.captures_on(self._device)
 
     def _stream_of(self, engine: int):
         """The CUDA stream of an engine (None on the CPU)."""
@@ -532,6 +722,11 @@ class StreamExecutor:
         model's cache when no executor runs the span any more."""
         live = _spans(self.plan.segments) | _spans(self._degraded_routes.values())
         live |= _spans(f.route for f in self.in_flight)
+        if self._slots:
+            routes = [(mi, r) for mi, r in enumerate(self.plan.segments)]
+            routes += [(mi, r) for (mi, _), r in self._degraded_routes.items()]
+            routes += [(f.model_index, f.route) for f in self.in_flight]
+            self._drop_slots({(mi, _route_key(r)) for mi, r in routes} | self._prepared_routes)
         for mi, lo, hi, impl in self._retired - live:
             for key in [k for k in self._seg_fns if k[:4] == (mi, lo, hi, impl)]:
                 del self._seg_fns[key]
@@ -565,15 +760,20 @@ class StreamExecutor:
             if stream is not None:
                 stream.wait_event(flight.ready)
             state = self.place_fns[eng](flight.state)
-            if stream is not None:
+            if stream is not None and flight.slot is None:
+                # slot buffers live as long as their graphs; a fresh state
+                # tensor does not
                 for t in tree_leaves(state):
                     t.record_stream(stream)
             t1 = time.perf_counter()
             self._charge_wait(eng, 1, t1 - t0)
             bucket = flight.bucket or flight.valid or _leading(state)
-            flight.state = self._segment_runner(flight.model_index, seg, bucket)(
-                self.models[flight.model_index].params, state
-            )
+            if flight.slot is not None:
+                flight.state = self._slot_segment(flight.slot, flight.stage, seg, state, bucket)
+            else:
+                flight.state = self._segment_runner(flight.model_index, seg, bucket)(
+                    self.models[flight.model_index].params, state
+                )
             if stream is not None:
                 flight.ready = torch.cuda.Event()
                 flight.ready.record(stream)
@@ -626,7 +826,14 @@ class StreamExecutor:
         last_eng = flight.route[-1].engine if flight.route else None
         self._block(flight, engine=last_eng)
         out = model.finalize(flight.state)
-        if self._engine_streams is not None:
+        if flight.slot is not None:
+            # the frame's output outlives the slot's next flight: one clone,
+            # on the caller's stream (the slot's next admission writes on
+            # it too, so after this read)
+            out = tree_map(torch.clone, out)
+            flight.slot.busy = False
+            flight.slot = None
+        elif self._engine_streams is not None:
             # the caller reads the outputs on its own stream from here on
             caller = torch.cuda.current_stream(_param_device(model))
             for t in tree_leaves(out):
@@ -806,11 +1013,19 @@ class StreamExecutor:
         # concatenated full-route group.
         clean = [(m, s) for m, s in zip(members, states) if m.degrade == 0]
         shed = [(m, s) for m, s in zip(members, states) if m.degrade > 0]
+        def slot_for(route_, sts, bucket_, merged_):
+            return self._take_slot(mi, route_, sts, bucket_, merged_) if self._use_slots else None
+
         if self.merge_batches[mi] and len(clean) > 1:
-            merged = tree_map(lambda *xs: torch.cat(xs, dim=0), *(s for _, s in clean))
             total = sum(m.size for m, _ in clean)
             bucket = bc.bucket_for(total) if coalesce else total
-            if bucket > total:
+            slot = slot_for(route, [s for _, s in clean], bucket, True)
+            if slot is not None:
+                # each frame written once into its rows: no cat, no pad
+                merged = slot.state
+            else:
+                merged = tree_map(lambda *xs: torch.cat(xs, dim=0), *(s for _, s in clean))
+            if slot is None and bucket > total:
                 # pad to the compiled bucket with zero lanes; _complete
                 # slices members out of [0, total) so the pads are never
                 # observable (bit-exact vs per-frame execution)
@@ -837,41 +1052,49 @@ class StreamExecutor:
                     valid=total,
                     bucket=bucket,
                     held=held,
+                    slot=slot,
                 )
             ]
         else:
-            flights = [
-                Flight(
-                    model_index=mi,
-                    members=[m],
-                    state=s,
-                    stage=0,
-                    route=route,
-                    revision=rev,
-                    valid=m.size,
-                    bucket=m.size,
-                    held=held and m.degrade == 0,
+            flights = []
+            for m, s in clean:
+                slot = slot_for(route, [s], m.size, False)
+                flights.append(
+                    Flight(
+                        model_index=mi,
+                        members=[m],
+                        state=s if slot is None else slot.state,
+                        stage=0,
+                        route=route,
+                        revision=rev,
+                        valid=m.size,
+                        bucket=m.size,
+                        held=held and m.degrade == 0,
+                        slot=slot,
+                    )
                 )
-                for m, s in clean
-            ]
         for m, s in shed:
+            shed_route = self._degraded_route(mi) if m.degrade >= 2 else route
+            slot = slot_for(shed_route, [s], m.size, False)
             flights.append(
                 Flight(
                     model_index=mi,
                     members=[m],
-                    state=s,
+                    state=s if slot is None else slot.state,
                     stage=0,
-                    route=self._degraded_route(mi) if m.degrade >= 2 else route,
+                    route=shed_route,
                     revision=rev,
                     degrade=m.degrade,
                     valid=m.size,
                     bucket=m.size,
+                    slot=slot,
                 )
             )
         for flight in flights:
             self._note_state_struct(mi, flight.state)
             if self._engine_streams is not None:
-                # the frames (and merge/pad tensors) were made on the caller's stream
+                # the frames (and merge/pad tensors, or the writes into the
+                # slot) were made on the caller's stream
                 flight.ready = torch.cuda.Event()
                 flight.ready.record(torch.cuda.current_stream(_param_device(model)))
             flight.t_issue = time.perf_counter()
