@@ -77,7 +77,13 @@ toolkit, this
    changed (but those whose gradient is exactly zero), BatchNorm's
    ``moving_*`` unchanged; step 1 on the card matches the same step on the
    CPU (losses and gradient norms within rtol 1e-4); ms per step and peak
-   memory;
+   memory; both steps captured (one CUDA graph each, a replay a step);
+   then ``train_ab``: at the same widths, the eager step (``step.eager``)
+   and the captured one in turns from one init and seed (losses, params
+   and optimizer states bit-equal with cuDNN deterministic and TF32 off;
+   ms per step with the capture outside the clock; device busy a step and
+   top ops under ``torch.profiler``; peak, held and reserved memory;
+   captures and replays; host copies and bytes a step, ``served_copies``);
 7. applies the surgery (padded -> cropping) with ``deconv_backend="pallas"``
    and evaluates the trained generator on an 8-image batch through the
    kernel: exactly 8 ``deconv2d`` launches, output within atol 1e-4 of the
@@ -684,9 +690,9 @@ def train_phase(torch, smi, dev):
     data = phantom_batches(1, PhantomConfig(IMG), seed=0)
     batches = [_tensors(torch, next(data), dev) for _ in range(5)]
     drop = torch.Generator(dev).manual_seed(0)
-    params, _, losses, times, peak = timed_steps(
-        make_pix2pix_train_step(model, adam, adam), p0, st, batches, (drop,)
-    )
+    pix_step = make_pix2pix_train_step(model, adam, adam)
+    params, _, losses, times, peak = timed_steps(pix_step, p0, st, batches, (drop,))
+    check_train_captured(pix_step, len(batches), "pix2pix train")
     for i, m in enumerate(losses):
         finite(m, f"pix2pix step {i + 1}")
     changed, same = _changed(p0, params)
@@ -699,8 +705,8 @@ def train_phase(torch, smi, dev):
         f"pix2pix train (img {IMG}, base {BASE}, batch 1, Adam 2e-4): 5 steps finite, g_loss "
         f"{losses[0]['g_loss']:.4f} -> {losses[-1]['g_loss']:.4f}; {len(changed)} leaves changed, "
         f"moving stats unchanged, unchanged trainable = the zero-gradient leaves {sorted(stuck)}; "
-        f"ms/step {sum(times[1:]) / len(times[1:]):.2f} (steps 2-5; step 1 {times[0]:.2f}), "
-        f"peak {peak / 2**30:.3f} GiB | {smi}"
+        f"captured (one CUDA graph, a replay a step): ms/step {sum(times[1:]) / len(times[1:]):.2f} (steps 2-5; "
+        f"step 1 {times[0]:.2f}, the capture), peak {peak / 2**30:.3f} GiB | {smi}"
     )
 
     # ---- YOLOv8n: step 1 parity, then 3 AdamW steps
@@ -727,6 +733,7 @@ def train_phase(torch, smi, dev):
     yparams, _, ylosses, ytimes, ypeak = timed_steps(
         ystep, y0, adamw.init(y0), [_tensors(torch, b, dev) for b in ybatches_np]
     )
+    check_train_captured(ystep, 1 + len(ybatches_np), "yolov8n train")  # its step 1 above, then the loop
     for i, m in enumerate(ylosses):
         finite(m, f"yolo step {i + 1}")
     changed, same = _changed(y0, yparams)
@@ -736,10 +743,189 @@ def train_phase(torch, smi, dev):
     print(
         f"yolov8n train (img {IMG}, batch 2, AdamW 1e-3): 3 steps finite, loss {ylosses[0]['loss']:.4f} -> "
         f"{ylosses[-1]['loss']:.4f}; all {len(changed)} trainable leaves changed, moving stats unchanged; "
-        f"ms/step {sum(ytimes[1:]) / len(ytimes[1:]):.2f} (steps 2-3; step 1 {ytimes[0]:.2f}), "
+        f"captured: ms/step {sum(ytimes[1:]) / len(ytimes[1:]):.2f} (steps 2-3; step 1 {ytimes[0]:.2f}), "
         f"peak {ypeak / 2**30:.3f} GiB | {smi}"
     )
+    rows["ab"] = train_ab(torch, smi, dev)
     return cfg, params, rows
+
+
+def check_train_captured(step, count, what):
+    """``step`` (a captured vision train step) ran ``count`` calls as
+    replays of one CUDA graph."""
+    replays = [g.replays for g in step.graphs.values()]
+    if replays != [count]:
+        raise AssertionError(f"{what}: {len(replays)} CUDA graphs replayed {replays} times, not one {count} times")
+
+
+# the train A/B (``train_ab``): steps a run, runs in turns, steps under the profiler
+TRAIN_AB_STEPS, TRAIN_AB_RUNS, TRAIN_AB_SPLIT = 5, ("eager", "captured", "captured", "eager"), 3
+# kinds of the vision train steps' kernels, by the first pattern a kernel's
+# name holds (``time_split``'s matmuls are convolutions here)
+TRAIN_KINDS = (("convolution", ("cudnn", "xmma", "gemm", "conv", "nvjet", "cutlass")), ("copy", ("memcpy", "memset")),
+               ("reduction", ("reduce",)), ("elementwise", ("elementwise",)))
+
+
+def train_kinds(split):
+    """``time_split``'s device ms by ``TRAIN_KINDS`` (the rest "other")."""
+    kinds = dict.fromkeys([k for k, _ in TRAIN_KINDS] + ["other"], 0.0)
+    kinds["convolution"] += split["by_kind"].get("matmul", 0.0)
+    for name, ms in split["other"].items():
+        kinds[next((k for k, pats in TRAIN_KINDS if any(t in name.lower() for t in pats)), "other")] += ms
+    return kinds
+
+
+def train_ab(torch, smi, dev):
+    """The vision train steps at full width, eager (``step.eager``: the
+    captured step's ops, one by one) and captured (one CUDA-graph replay a
+    call), in turns (``TRAIN_AB_RUNS``), each run ``TRAIN_AB_STEPS`` steps
+    from one init, one seeded dropout generator and the same batches:
+    Pix2Pix (padded, xla deconvs; img ``IMG``, base ``BASE``, batch 1,
+    ``Adam(2e-4, b1=0.5)`` with dropout) and YOLOv8n (img ``IMG``, batch 2,
+    ``AdamW(1e-3)``), with cuDNN deterministic and TF32 off. Fails unless
+    every run's losses, final params and optimizer states are bit-equal,
+    the captured runs replay the one graph captured before them (its
+    capture, timed apart, outside the clock), and a captured step makes one
+    host copy per input leaf (a fill for each count) and one clone per
+    output leaf. Reports ms per step (host clock, synchronised at the end
+    of the run), the memory the capture holds and reserves above the
+    inputs (the graph's static trees, its pool), each run's peak above its
+    start and the memory reserved after it, then ``TRAIN_AB_SPLIT`` steps
+    of each under ``torch.profiler``
+    (``time_split``: device busy a step, idle share, top kernels and ops)
+    and the copies and bytes of one captured step (``served_copies``)."""
+    from repro_torch.data import PhantomConfig, detection_batches, phantom_batches
+    from repro_torch.models import Pix2Pix, Pix2PixConfig, YOLOv8, YOLOv8Config
+    from repro_torch.train import Adam, AdamW, make_pix2pix_train_step, make_yolo_train_step
+
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        pix = Pix2Pix(Pix2PixConfig(img_size=IMG, base=BASE, deconv_mode="padded", deconv_backend="xla"))
+        adam = Adam(lr=2e-4, b1=0.5)
+        data = phantom_batches(1, PhantomConfig(IMG), seed=4)
+        yolo = YOLOv8(YOLOv8Config(img_size=IMG))
+        adamw = AdamW(1e-3)
+        ydata = detection_batches(2, PhantomConfig(IMG, lesion_p=1.0), seed=5)
+        cases = {
+            "pix2pix": (make_pix2pix_train_step(pix, adam, adam),
+                        pix.init(torch.Generator().manual_seed(2)),
+                        lambda p: {"g": adam.init(p["generator"]), "d": adam.init(p["discriminator"])},
+                        [next(data) for _ in range(TRAIN_AB_STEPS)], True,
+                        f"Pix2Pix (img {IMG}, base {BASE}, batch 1, Adam 2e-4 with dropout)"),
+            "yolov8n": (make_yolo_train_step(yolo, adamw), yolo.init(torch.Generator().manual_seed(3)), adamw.init,
+                        [next(ydata) for _ in range(TRAIN_AB_STEPS)], False,
+                        f"YOLOv8n (img {IMG}, batch 2, AdamW 1e-3)"),
+        }
+        for name in list(cases):
+            out[name] = _train_ab_model(torch, smi, dev, name, *cases.pop(name))
+            torch.cuda.empty_cache()  # the model's graph and its pool are gone with its step
+    finally:
+        torch.backends.cudnn.deterministic = flags
+    return out
+
+
+def _train_ab_model(torch, smi, dev, name, step, init_cpu, init_state, batches_np, dropout, what):
+    from repro_torch.nn.module import tree_leaves, tree_map
+
+    p0 = tree_map(lambda t: t.to(dev), init_cpu)
+    s0 = init_state(p0)
+    batches = [_tensors(torch, b, dev) for b in batches_np]
+    drop = torch.Generator(dev) if dropout else None
+    calls = {"eager": step.eager, "captured": step}
+
+    def run(kind, n=TRAIN_AB_STEPS):
+        extra = () if drop is None else (drop.manual_seed(0),)
+        p, s, metrics = p0, s0, []
+        for b in batches[:n]:
+            p, s, m = calls[kind](p, s, b, *extra)
+            metrics.append(m)
+        return p, s, metrics
+
+    # the capture and a warm-up of the eager ops, outside the clock
+    torch.cuda.synchronize()
+    held0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run("captured", 1)
+    torch.cuda.synchronize()
+    g = next(iter(step.graphs.values()))
+    capture = {"s": time.perf_counter() - t0, "peak_above_bytes": torch.cuda.max_memory_allocated() - held0,
+               "held_bytes": torch.cuda.memory_allocated() - held0,
+               "reserved_bytes": torch.cuda.memory_reserved() - reserved0,
+               "static_bytes": sum(t.nbytes for t in tree_leaves((g.static_in, g.static_out)) if t.device.type == dev.type)}
+    del g
+    run("eager", 1)
+    rows, ref = [], None
+    for kind in TRAIN_AB_RUNS:
+        replays = sum(g.replays for g in step.graphs.values())
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, s, metrics = run(kind)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_AB_STEPS
+        row = {"step": kind, "ms_per_step": ms, "peak_above_bytes": torch.cuda.max_memory_allocated() - start,
+               "reserved_bytes": torch.cuda.memory_reserved() - reserved0,
+               "replays": sum(g.replays for g in step.graphs.values()) - replays}
+        got = (p, s, [{k: v.clone() for k, v in m.items()} for m in metrics])
+        if ref is None:
+            ref = got
+        elif not all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(ref))):
+            bad = sum(not torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(ref)))
+            raise AssertionError(f"{name} train A/B: the {kind} run differs from the first run in {bad} leaves")
+        row["losses"] = [{k: float(v) for k, v in m.items() if "loss" in k} for m in metrics]
+        rows.append(row)
+        del p, s, metrics, got
+    if len(step.graphs) != 1 or [r["replays"] for r in rows] != [0 if r["step"] == "eager" else TRAIN_AB_STEPS
+                                                                for r in rows]:
+        raise AssertionError(f"{name} train A/B: {len(step.graphs)} graphs, replays {[r['replays'] for r in rows]}")
+    # the copies of one captured step
+    extra = () if drop is None else (drop.manual_seed(0),)
+    n_counts = sum(1 for x in tree_leaves(s0) if x.device.type == "cpu" and x.ndim == 0 and not x.is_floating_point())
+    with served_copies(torch) as copies:
+        outs = step(p0, s0, batches[0], *extra)
+    n_in, n_out = len(tree_leaves((p0, s0, batches[0]))) - n_counts, len(tree_leaves(outs)) - n_counts
+    by_op = {}
+    for key, c in copies.rows.items():
+        by_op[key.split(" ")[0]] = by_op.get(key.split(" ")[0], 0) + c
+    if by_op != {"copy_": n_in, "clone": n_out}:
+        raise AssertionError(f"{name} train A/B: a captured step copied {by_op}, not {n_in} in and {n_out} out")
+    del outs
+    splits = {kind: time_split(torch, lambda *_: run(kind, TRAIN_AB_SPLIT), None, None) for kind in ("eager", "captured")}
+    by = {k: [r for r in rows if r["step"] == k] for k in ("eager", "captured")}
+    print(f"train A/B, {what}: {TRAIN_AB_STEPS} steps a run, eager / captured / captured / eager, losses, params "
+          f"and optimizer states bit-equal in all four (cuDNN deterministic, TF32 off); eager "
+          + ", ".join(f"{r['ms_per_step']:.2f}" for r in by["eager"]) + " ms/step, captured (one CUDA-graph replay a "
+          "step) " + ", ".join(f"{r['ms_per_step']:.2f}" for r in by["captured"]) + " ms/step (host clock); the capture "
+          f"(warm-up, capture, one replay) {capture['s']:.2f} s, its peak {capture['peak_above_bytes'] / 2**30:.3f} "
+          f"GiB above the inputs, then held +{capture['held_bytes'] / 2**30:.3f} GiB (the graph's static trees "
+          f"{capture['static_bytes'] / 2**30:.3f}), reserved +{capture['reserved_bytes'] / 2**30:.3f} GiB; a run's "
+          "peak above its start: eager " + ", ".join(f"{r['peak_above_bytes'] / 2**30:.3f}" for r in by["eager"])
+          + " GiB, captured " + ", ".join(f"{r['peak_above_bytes'] / 2**30:.3f}" for r in by["captured"])
+          + " GiB; reserved after each run, above the inputs': "
+          + ", ".join(f"{r['step']} +{r['reserved_bytes'] / 2**30:.3f}" for r in rows)
+          + f" GiB; {len(step.graphs)} capture, {sum(r['replays'] for r in rows)} replays in the timed runs; one "
+          f"captured step's host copies: {by_op['copy_']} copy_ ({copies.bytes['copy_'] / 1e9:.4f} GB) in, "
+          f"{by_op['clone']} clone ({copies.bytes['clone'] / 1e9:.4f} GB) out | {smi}")
+    for kind, split in splits.items():
+        if not split:
+            print(f"  {kind}: train time split not measured (the profiler recorded no kernel)")
+            continue
+        split["train_kinds"] = train_kinds(split)
+        kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["train_kinds"].items(), key=lambda kv: -kv[1]))
+        print(f"  {kind}, {TRAIN_AB_SPLIT} steps under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy "
+              f"{split['busy_ms']:.2f} ms ({kinds}), idle {100 * split['idle_share']:.1f}%; busy "
+              f"{split['busy_ms'] / TRAIN_AB_SPLIT:.2f} ms a step; largest other kernels: "
+              + "; ".join(f"{k} {v:.2f}" for k, v in split["top_other"]) + f" | {smi}")
+        if split["top_ops"]:
+            print("    its device ms by op (own kernels): " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_ops"]))
+    for sp in splits.values():
+        sp.pop("backward", None)
+        sp.pop("other", None)
+    return {"runs": rows, "capture": capture, "copies": by_op, "copy_bytes": copies.bytes, "splits": splits}
 
 
 def _paths(tree, path=""):
@@ -1114,8 +1300,9 @@ def time_split(torch, prefill, params, tokens):
     wall of the same run (the profiler's own host cost included), the ops
     whose own kernels take the most device time (``top_ops``) and the
     backward nodes whose kernels, theirs and their ops', take the most
-    (``top_backward``; every node's in ``backward``). Empty when the
-    profiler recorded no kernel."""
+    (``top_backward``; every node's in ``backward``), and the device ms of
+    every kernel outside the LM kernels and the matmuls (``other``). Empty
+    when the profiler recorded no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1153,7 +1340,7 @@ def time_split(torch, prefill, params, tokens):
 
     return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall, "by_kind": by_kind,
             "top_other": top(other, 5), "top_ops": top(ops, 8), "top_backward": top(backward, 6),
-            "backward": backward}
+            "backward": backward, "other": other}
 
 
 def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref):
@@ -1660,7 +1847,7 @@ SERVED_COPY_OPS = ("copy_", "clone", "cat", "_to_copy")
 def served_copies(torch):
     """A ``TorchDispatchMode`` whose ``rows`` count, while it is entered,
     the host-issued ops that copy a tensor (``SERVED_COPY_OPS``), by op
-    and output shape. In a served run whose segments are replayed CUDA
+    and output shape (``bytes``: the bytes they wrote, by op). In a served run whose segments are replayed CUDA
     graphs (a replay is no dispatched op) these are the copies and clones
     of its state leaves."""
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -1672,10 +1859,11 @@ def served_copies(torch):
             if name in SERVED_COPY_OPS:
                 key = f"{name} {tuple(out.shape)}"
                 self.rows[key] = self.rows.get(key, 0) + 1
+                self.bytes[name] = self.bytes.get(name, 0) + out.nbytes
             return out
 
     mode = ServedCopies()
-    mode.rows = {}
+    mode.rows, mode.bytes = {}, {}
     return mode
 
 

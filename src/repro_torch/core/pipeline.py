@@ -35,8 +35,9 @@ from ..nn.module import tree_def, tree_leaves, tree_map, tree_unflatten
 from .graph import LayerGraph
 
 # CUDA-graph memory pools by (device, CUDA stream) or by owner (a served
-# flight's slot, ``serve.executor``), each with the graphs captured into
-# it, and the side stream each device captures on. Graphs that share a pool
+# flight's slot, ``serve.executor``; a captured train step's key,
+# ``train.steps``), each with the graphs captured into it, and the side
+# stream each device captures on. Graphs that share a pool
 # may reuse each other's intermediate memory, which is safe only while they
 # never run at once and none of them keeps an output past another's replay:
 # a stream's graphs are ordered by that stream and their outputs are read
@@ -83,16 +84,21 @@ def _current_stream(device: torch.device):
     return torch.cuda.current_stream(device) if device.type == "cuda" else None
 
 
-def capture_graph(stream, side, run: Callable, what: str, owner=None):
+def capture_graph(stream, side, run: Callable, what: str, owner=None, generators=()):
     """``run()`` captured into a ``torch.cuda.CUDAGraph`` on the side
     stream ``side``, into ``stream``'s pool or ``owner``'s (``_graph_pool``):
     returns the graph, ``run``'s outputs and the pool's set of graphs, to
-    which the caller adds its ``CapturedGraph``. A capture that fails
-    raises, naming ``what``. capture_begin/end rather than torch.cuda.graph,
-    whose entry also empties the allocator's cache: every later allocation
-    would pay a cudaMalloc again, on the hot path when a capture happens
-    there."""
+    which the caller adds its ``CapturedGraph``. ``generators``: the CUDA
+    ``torch.Generator``s ``run`` draws from, registered with the graph, so
+    each replay draws from a generator's state at that time and advances it
+    as the eager ops would (the capture leaves it as it was). A capture
+    that fails raises, naming ``what``. capture_begin/end rather than
+    torch.cuda.graph, whose entry also empties the allocator's cache: every
+    later allocation would pay a cudaMalloc again, on the hot path when a
+    capture happens there."""
     graph = torch.cuda.CUDAGraph()
+    for generator in generators:
+        graph.register_generator_state(generator)
     pool, pool_graphs = _graph_pool(stream, owner)
     torch.cuda.synchronize(stream.device)
     try:

@@ -8,7 +8,10 @@ were. A leaf the loss does not reach (BatchNorm's ``moving_*`` statistics)
 gets a zero gradient, as ``jax.grad`` gives it, so the global norm and the
 optimizer state match the reference. Training runs the plain ops
 (``impl``/``deconv_backend="xla"``): the kernels have no backward and
-refuse to run under autograd.
+refuse to run under autograd. On the card the Pix2Pix and YOLOv8 train
+steps are what the JAX callers' ``jax.jit`` compiles (donating nothing):
+each is captured into one CUDA graph per key and replayed at every call
+(``_captured_train_step``).
 
 The LM entry points serve and train every LM family (``TransformerLM``,
 ``Mamba2LM``, ``HymbaLM``, ``WhisperModel``: each has the same method
@@ -23,8 +26,11 @@ modules then take the plain ops on both devices (``kernels.grad_route``).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from ..core import pipeline
 from ..core.pipeline import CapturedGraph, _capture_stream, capture_graph
 from ..nn.module import tree_def, tree_leaves, tree_map, tree_unflatten
 from .losses import chunked_cross_entropy, pix2pix_d_loss, pix2pix_g_loss, yolo_loss
@@ -47,7 +53,8 @@ def make_pix2pix_train_step(model, g_opt, d_opt, lambda_l1: float = 100.0):
 
     ``step(params, opt_state, batch, generator=None)``: ``generator`` (a
     ``torch.Generator`` on the batch's device) draws the generator's
-    dropout; None runs without dropout, as JAX's ``rng=None``."""
+    dropout; None runs without dropout, as JAX's ``rng=None``. On the card
+    the step is captured (``_captured_train_step``)."""
 
     def train_step(params, opt_state, batch, generator=None):
         src, dst = batch["src"], batch["dst"]
@@ -69,7 +76,7 @@ def make_pix2pix_train_step(model, g_opt, d_opt, lambda_l1: float = 100.0):
         metrics.update({k: v.detach() for k, v in {**g_parts, **d_parts}.items()})
         return {"generator": new_g, "discriminator": new_d}, {"g": g_state, "d": d_state}, metrics
 
-    return train_step
+    return _captured_train_step(train_step, f"the train step of {model.cfg.name}")
 
 
 def make_pix2pix_infer(model):
@@ -81,9 +88,11 @@ def make_pix2pix_infer(model):
 
 
 def make_yolo_train_step(model, optimizer):
+    """``step(params, opt_state, batch)``, batch = {"image", "targets"}; on
+    the card the step is captured (``_captured_train_step``)."""
     cfg = model.cfg
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, generator=None):
         p = _trainable(params)
         preds = model(p, batch["image"])
         loss, parts = yolo_loss(preds, batch["targets"], cfg.n_classes, cfg.reg_max)
@@ -91,7 +100,118 @@ def make_yolo_train_step(model, optimizer):
         params, opt_state, opt_info = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss.detach(), "n_pos": parts["n_pos"], **opt_info}
 
-    return train_step
+    captured = _captured_train_step(train_step, f"the train step of {cfg.name}")
+
+    def step(params, opt_state, batch):
+        return captured(params, opt_state, batch)
+
+    def eager(params, opt_state, batch):
+        return captured.eager(params, opt_state, batch)
+
+    step.graphs, step.eager = captured.graphs, eager
+    return step
+
+
+def _is_count(x) -> bool:
+    """Whether an optimizer-state leaf is a step count as the optimizers'
+    ``init`` makes it: a 0-d integer tensor on the host."""
+    return x.device.type == "cpu" and x.ndim == 0 and not x.dtype.is_floating_point
+
+
+def _counts_on(opt_state, device):
+    """``opt_state`` with each count (``_is_count``) a 0-d tensor of its
+    value on ``device`` (a fill, no copy from the host)."""
+    return tree_map(lambda x: torch.full((), int(x), dtype=x.dtype, device=device) if _is_count(x) else x, opt_state)
+
+
+@dataclasses.dataclass(eq=False)
+class _TrainGraph(CapturedGraph):
+    counts: frozenset = frozenset()  # flat indices of the optimizer counts (inputs and outputs alike)
+
+
+def _captured_train_step(run, what):
+    """``run(params, opt_state, batch, generator)`` (a train step, out of
+    place) as the JAX callers' ``jax.jit`` compiles it, donating nothing.
+
+    On CUDA tensors it is captured into a ``torch.cuda.CUDAGraph`` once per
+    key: the trees' structure, each leaf's shape, dtype, strides and
+    device, the dropout ``generator`` (None or the object) and the current
+    stream; not the leaves' addresses, since every call brings new ones.
+    Each call copies the params, the optimizer state and the batch into
+    the graph's input buffers and fills each optimizer count (``_is_count``)
+    into a 0-d buffer on the card with its host value (no sync), so the
+    bias corrections and the schedule run in the graph on the call's own
+    count; it then replays and clones every output leaf out. So the
+    caller's trees are left as they were, every returned tree is fresh and
+    outlives later calls, and each count comes back as the host's ``count
+    + 1`` (``update`` advances it by one), a CPU tensor as ``init`` made
+    it. The ``generator`` is registered with the graph: a replay draws the
+    masks the eager ops would and advances it as much. Before a capture
+    ``run`` goes once through on the side stream, with a scratch generator
+    (the caller's stays where it was). Each capture takes a memory pool of
+    its own. A capture that fails raises, naming ``what``; nothing falls
+    back to eager. On CPU tensors (the caller asked for the CPU) ``run`` is
+    called as it is. ``step.graphs`` holds the captures by key;
+    ``step.eager`` is the captured ops without the graph (``run`` on the
+    counts put on the batch's device, the counts handed back as the
+    step's)."""
+    graphs: dict[tuple, _TrainGraph] = {}
+
+    def eager(params, opt_state, batch, generator=None):
+        new_params, new_state, metrics = run(params, _counts_on(opt_state, tree_leaves(batch)[0].device), batch,
+                                             generator)
+        leaves = [x + 1 if _is_count(x) else y for x, y in zip(tree_leaves(opt_state), tree_leaves(new_state))]
+        return new_params, tree_unflatten(new_state, leaves), metrics
+
+    def step(params, opt_state, batch, generator=None):
+        device = tree_leaves(batch)[0].device
+        if not pipeline.captures_on(device):
+            return run(params, opt_state, batch, generator)
+        trees = (params, opt_state, batch)
+        leaves = tree_leaves(trees)
+        stream = pipeline._current_stream(device)
+        key = (tree_def(trees), tuple((tuple(t.shape), t.dtype, t.stride(), t.device) for t in leaves), generator,
+               None if stream is None else stream.cuda_stream)
+        g = graphs.get(key)
+        if g is None:
+            g = graphs[key] = _capture_train(run, what, trees, generator, stream, device)
+        for i, (buf, x) in enumerate(zip(g.static_in, leaves)):
+            if i in g.counts:
+                buf.fill_(int(x))
+            else:
+                buf.copy_(x)
+        g.graph.replay()
+        g.replays += 1
+        out = [leaves[i] + 1 if i in g.counts else o.clone() for i, o in enumerate(tree_leaves(g.static_out))]
+        return tree_unflatten(g.static_out, out)
+
+    step.graphs, step.eager = graphs, eager
+    return step
+
+
+def _capture_train(run, what, trees, generator, stream, device) -> _TrainGraph:
+    """``run`` on static copies of ``trees`` (each optimizer count a 0-d
+    buffer on ``device``), captured into a CUDA graph with a pool of its
+    own after one run on the side stream."""
+    params, opt_state, batch = trees
+    static = (tree_map(torch.clone, params), tree_map(torch.clone, _counts_on(opt_state, device)),
+              tree_map(torch.clone, batch))
+    n_params = len(tree_leaves(params))
+    counts = frozenset(n_params + j for j, x in enumerate(tree_leaves(opt_state)) if _is_count(x))
+    side = pipeline._capture_stream(device)
+    if side is not None:
+        side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        # warm-up: first-use work (library handles, kernel loads) stays out of the graph
+        run(*static, None if generator is None else torch.Generator(generator.device))
+    graph, out, pool_graphs = pipeline.capture_graph(
+        stream, side, lambda: run(*static, generator), what, owner=object(),
+        generators=() if generator is None else (generator,))
+    if tree_def(out[:2]) != tree_def(trees[:2]):
+        raise ValueError(f"{what}: the returned params and optimizer state are not trees of the ones given")
+    captured = _TrainGraph(graph, None, tree_leaves(static), out, [], {}, counts=counts)
+    pool_graphs.add(captured)
+    return captured
 
 
 # ---------------------------------------------------------------------------
