@@ -206,7 +206,9 @@ toolkit, this
    reference's largest value, the decode steps writing into their caches;
    one line per kind); every decode cell's outputs and temps within
    ``DECODE_CELL_SPARE_GIB`` (the step writes into its donated caches) and
-   the cells of ``DECODE_CELL_GIB`` within their totals; then the paper's
+   the cells of ``DECODE_CELL_GIB`` within their totals; Mamba-2's decode
+   cells at ``CARRY_COUNTS`` (each cell's row printed with its counts,
+   bytes by kind and ``torch.__version__``); then the paper's
    Pix2Pix + YOLOv8 graphs planned once on the host over
    ``h100_submesh_engines()`` (cut points, expected cycle).
 
@@ -3656,6 +3658,11 @@ DRYRUN_CELLS = (("gemma2_2b", "train_4k", False), ("gemma2_2b", "decode_32k", Fa
 # their bounds (from 33.12 GiB)
 DECODE_CELL_SPARE_GIB = 2.0
 DECODE_CELL_GIB = {("hymba_1_5b", "decode_32k", False): 15.0}
+# Mamba-2's decode cells on either mesh, every torch version: the layer loop
+# carries the residual whole over "model" (dist.carry), so a step issues one
+# all-reduce a layer for the out-projection's partial sum and one for the
+# gated norm's statistics: (all-reduce, all-gather, reduce-scatter)
+CARRY_COUNTS = {("mamba2_2_7b", "decode_32k"): (128, 0, 0), ("mamba2_2_7b", "long_500k"): (128, 0, 0)}
 # experiments/torch_hillclimb.py's own example: (arch, shape, variant)
 HILLCLIMB = ("mamba2_2_7b", "train_4k", {"n_micro": 2})
 # smoke-width cells on a fake 2 x 2 ("data", "model") group, where every mesh
@@ -3884,11 +3891,15 @@ def dryrun_phase(smi):
     ``experiments/torch_hillclimb.py``, at full width and depth, the
     smoke-width 2 x 2 cells and the two-rank MoE launch, each task in one
     of four spawned processes with its own fake process group (or its own
-    gloo ranks) apart from this process's groups; every cell ``ok`` and no
-    CUDA context in those processes. Then the planning line over the H100
-    engine pair. Returns the rows."""
+    gloo ranks) apart from this process's groups; every cell ``ok``, no
+    CUDA context in those processes and Mamba-2's decode cells at
+    ``CARRY_COUNTS``. Then the planning line over the H100 engine pair.
+    Returns the rows."""
     import multiprocessing
 
+    import torch
+
+    torch_version = torch.__version__
     t0 = time.perf_counter()
     # the longest first (gemma2-2b's train_4k cell, the hillclimb call, the
     # 2 x 2 cells, the launches), so that the short cells fill in at the end
@@ -3933,15 +3944,21 @@ def dryrun_phase(smi):
                                      f"outputs + temps <= {DECODE_CELL_SPARE_GIB} and a total <= {bound} (the "
                                      "caches written in place)")
         counts = {k: v for k, v in r["collective_counts"].items() if k != "bytes_by_kind"}
-        gib = {k: v / 2**30 for k, v in r["collective_counts"]["bytes_by_kind"].items() if v}
+        mb = {k: v / 1e6 for k, v in r["collective_counts"]["bytes_by_kind"].items() if v}
         what = f"hillclimb {args[2]}" if kind == "hillclimb" else "dry run"
-        print(f"{what} {r['arch']} {r['shape']} {r['mesh']} (predicted for the H100 SXM's peaks): "
-              f"compute {r['t_compute_s'] * 1e3:.3f} ms, memory {r['t_memory_s'] * 1e3:.3f} ms, "
+        print(f"{what} {r['arch']} {r['shape']} {r['mesh']}, torch {torch_version} (predicted for the H100 SXM's "
+              f"peaks): compute {r['t_compute_s'] * 1e3:.3f} ms, memory {r['t_memory_s'] * 1e3:.3f} ms, "
               f"collective {r['t_collective_s'] * 1e3:.3f} ms, bottleneck {r['bottleneck']}, per-rank memory "
               f"{mem['total']:.2f} GiB (outputs {mem['outputs']:.3f}, temps {mem['temps']:.3f}), "
               f"collectives {counts} "
-              "(GiB by kind " + ", ".join(f"{k} {v:.3f}" for k, v in gib.items()) + f"), host {seconds:.1f} s")
-        rows.append(dict(r, task=kind, host_s=seconds))
+              "(MB a rank by kind " + ", ".join(f"{k} {v:.4f}" for k, v in mb.items()) + f"), host {seconds:.1f} s")
+        want = CARRY_COUNTS.get((r["arch"], r["shape"])) if kind == "cell" else None
+        got = tuple(counts[k] for k in ("all-reduce", "all-gather", "reduce-scatter"))
+        if want is not None and got != want:
+            raise AssertionError(f"dry run {r['arch']} {r['shape']} {r['mesh']}, torch {torch_version}: "
+                                 f"{got} all-reduces / all-gathers / reduce-scatters a step, want {want} (the "
+                                 "layer loop's carry)")
+        rows.append(dict(r, task=kind, host_s=seconds, torch=torch_version))
     n_data = sum(len(r["cases"]) for r in rows if r["task"] == "data")
     print(f"dry run: {len(DRYRUN_CELLS)} cells, the hillclimb call, {len(SMOKE_2X2_CELLS)} smoke-width 2 x 2 "
           f"cells, {len(LAUNCHES)} two-rank launches and {n_data} cases on ranks with data ok in "

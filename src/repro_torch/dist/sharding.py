@@ -19,8 +19,11 @@ global values are the same either way. ``device_put`` places a tree by its
 shardings (``jax.device_put``), ``abstract_put`` places a tree of ``meta``
 tensors without a copy (the dry-run's ``ShapeDtypeStruct``s passed with
 ``in_shardings``), ``on_mesh`` runs a step over DTensors (``jax.jit`` with
-``in_shardings``) and ``constrain`` is the models' activation constraint
-(``jax.lax.with_sharding_constraint``). ``cache_shardings`` places the
+``in_shardings``), ``constrain`` is the models' activation constraint
+(``jax.lax.with_sharding_constraint``) and ``carry`` the layer loops' one
+placement of the residual from layer to layer (a ``lax.scan`` carry's one
+sharding; ``to_residual`` keeps it through a decode block's adds).
+``cache_shardings`` places the
 decode caches, ``blockwise`` runs an op whose batch-like dims are
 independent on each rank's block of them (the attention core, the SSD scan
 and its decode step) and ``write_at_`` is the donated decode's slot write
@@ -384,25 +387,25 @@ def split_once(x, dim: int):
     return x.redistribute(mesh, [Replicate() if i in split and i != keep else pl for i, pl in enumerate(x.placements)])
 
 
-class _ReducePartials(torch.autograd.Function):
-    """A DTensor's partial placements reduced to ``Replicate()``. The
-    gradient of a sum over ranks is the whole gradient on every rank: it
-    goes back replicated there (DTensor's own backward of the redistribution
-    would turn it into the masked partial, which it cannot)."""
+class _Carry(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``, its partial placements
+    reduced there (all-reduced to ``Replicate()``, reduce-scattered to a
+    ``Shard``). The gradient of a sum over ranks is the whole gradient on
+    every rank: it goes back replicated on those dims (DTensor's own
+    backward of the redistribution would turn it into the masked partial,
+    which it cannot), and as it comes on the others."""
 
     @staticmethod
-    def forward(ctx, x):
-        from torch.distributed.tensor import Replicate
-
-        ctx.placements = x.placements
-        return x.redistribute(x.device_mesh, [Replicate() if pl.is_partial() else pl for pl in x.placements])
+    def forward(ctx, x, placements):
+        ctx.partial = [pl.is_partial() for pl in x.placements]
+        return x.redistribute(x.device_mesh, placements)
 
     @staticmethod
     def backward(ctx, g):
         from torch.distributed.tensor import Replicate
 
-        return g.redistribute(g.device_mesh, [Replicate() if pl.is_partial() else gp
-                                              for pl, gp in zip(ctx.placements, g.placements)])
+        return g.redistribute(g.device_mesh, [Replicate() if partial else gp
+                                              for partial, gp in zip(ctx.partial, g.placements)]), None
 
 
 def reduce_partials(x):
@@ -413,11 +416,59 @@ def reduce_partials(x):
     reduction: a second use of the lookup (the residual beside the norm,
     remat's recompute) then has none. Reduced where it is made, it is
     reduced once."""
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate
 
     if not isinstance(x, DTensor) or not any(pl.is_partial() for pl in x.placements):
         return x
-    return _ReducePartials.apply(x)
+    return _Carry.apply(x, tuple(Replicate() if pl.is_partial() else pl for pl in x.placements))
+
+
+def carry_placements(x):
+    """The placements a layer loop carries its residual ``x`` (the
+    embedding's output, ``(..., hidden)``) in, from layer to layer, as a
+    ``jax.lax.scan``'s carry has one sharding for every iteration: whole on
+    the tensor-parallel dims ("model", "tensor"), a layer's partial sum
+    all-reduced there; on the others what ``x`` has there (the batch's
+    split), whole where ``x`` is partial or split on the hidden dim. None
+    for a plain tensor; a dim of one rank is ``Replicate()``. (Split on the
+    hidden dim over "model", the residual moved more collective bytes in
+    every dry-run decode cell: PERF.md §6.)"""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return None
+    mesh, hidden = x.device_mesh, x.ndim - 1
+    return tuple(pl if mesh.size(m) > 1 and name not in _MODEL_MESH_NAMES and pl.is_shard() and pl.dim != hidden
+                 else Replicate() for m, (name, pl) in enumerate(zip(mesh.mesh_dim_names, x.placements)))
+
+
+def to_residual(h, x):
+    """``h`` (a block's attention, mixer or feed-forward output, a partial
+    sum where its last projection contracts a split dim) at the placements
+    of the residual ``x`` it is added to (``carry``), so that the residual
+    keeps the loop's carry placement through the layer and the add leaves
+    DTensor's strategies nothing to choose. ``h`` itself where either is a
+    plain tensor or ``x`` is partial."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor) or any(pl.is_partial() for pl in x.placements):
+        return h
+    return carry(h, tuple(x.placements))
+
+
+def carry(x, placements):
+    """The layer loop's residual ``x`` at its carry ``placements``
+    (``carry_placements``): applied after the embedding and after every
+    layer, so each layer's input has one placement, as the JAX package's
+    ``lax.scan`` carry has, and a partial sum a layer leaves is reduced
+    once, where it is made (all-reduced or reduce-scattered, ``_Carry``).
+    ``x`` itself, with no dispatch, where it is a plain tensor,
+    ``placements`` is None, or it is at those placements already."""
+    from torch.distributed.tensor import DTensor
+
+    if placements is None or not isinstance(x, DTensor) or tuple(x.placements) == placements:
+        return x
+    return _Carry.apply(x, placements)
 
 
 def to_global(x):

@@ -19,7 +19,7 @@ from typing import Any
 
 import torch
 
-from ..dist.sharding import constrain
+from ..dist.sharding import carry, carry_placements, constrain, to_residual
 from ..nn import MLP, Attention, Embedding, Mamba2Block, Module, RMSNorm, Stacked
 from ..nn.attention import decode_position
 from ..nn.module import checkpointed, layer, tree_map, tree_stack, unstack
@@ -102,10 +102,12 @@ class HymbaBlock(Module):
     def _norm(self, p, x):
         return RMSNorm(self.cfg.d_model, self.cfg.norm_eps)(p, x)
 
-    def _fuse_and_mlp(self, p, x, a, m):
+    def _fuse_and_mlp(self, p, x, a, m, align=lambda h, x: h):
+        """``align(h, x)`` places each branch's output before its add."""
         c = self.cfg
+        a, m = align(a, x), align(m, x)
         x = x + 0.5 * (self._norm(p["ln_attn_out"], a) + self._norm(p["ln_mamba_out"], m))
-        return x + MLP(c.d_model, c.d_ff, act="silu")(p["mlp"], self._norm(p["ln_mlp"], x))
+        return x + align(MLP(c.d_model, c.d_ff, act="silu")(p["mlp"], self._norm(p["ln_mlp"], x)), x)
 
     def __call__(self, p, x, positions, window, index_positions=False):
         c = self.cfg
@@ -127,7 +129,7 @@ class HymbaBlock(Module):
         h = self._norm(p["ln_mix"], x)
         a, kv = c.attn().decode(p["attn"], h, cache["kv"], t, window=window)
         m, st = c.mamba().decode(p["mamba"], h, cache["ssm"])
-        return self._fuse_and_mlp(p, x, a, m), {"kv": kv, "ssm": st}
+        return self._fuse_and_mlp(p, x, a, m, to_residual), {"kv": kv, "ssm": st}
 
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None, abstract=False):
         c = self.cfg
@@ -171,8 +173,11 @@ class HymbaLM(Module):
         positions, index = self._positions(tokens, positions)
         x = self._embed(p, tokens)
         blk = checkpointed(HymbaBlock(c), c.remat)
+        pl = None if c.act_spec is not None else carry_placements(x)
+        x = carry(x, pl)
         for bp, w in zip(unstack(p["blocks"]), c.windows()):
-            x = constrain(blk(bp, constrain(x, c.act_spec), positions, w, index_positions=index), c.act_spec)
+            x = blk(bp, constrain(x, c.act_spec), positions, w, index_positions=index)
+            x = carry(constrain(x, c.act_spec), pl)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
             return RMSNorm(c.d_model, c.norm_eps)(p["final_norm"], x), aux
@@ -193,9 +198,11 @@ class HymbaLM(Module):
         positions, index = self._positions(tokens, positions)
         x = self._embed(p, tokens)
         blk = HymbaBlock(c)
-        caches = []
+        pl = carry_placements(x)
+        x, caches = carry(x, pl), []
         for bp, w in zip(unstack(p["blocks"]), c.windows()):
             x, cache = blk.prefill(bp, x, positions, w, cache_dtype, index_positions=index)
+            x = carry(x, pl)
             caches.append(cache)
         return self._logits(p, x[:, -1:]), tree_stack(caches)
 
@@ -207,6 +214,9 @@ class HymbaLM(Module):
         t = decode_position(t, token)
         x = self._embed(p, token)
         blk = HymbaBlock(c)
+        pl = carry_placements(x)
+        x = carry(x, pl)
         for i, (bp, w) in enumerate(zip(unstack(p["blocks"]), c.windows())):
             x, _ = blk.decode(bp, x, layer(caches, i), t, w)
+            x = carry(x, pl)
         return self._logits(p, x), caches

@@ -25,7 +25,7 @@ from typing import Any
 
 import torch
 
-from ..dist.sharding import constrain
+from ..dist.sharding import carry, carry_placements, constrain, to_residual
 from ..nn import MLP, Attention, Embedding, Linear, MLAAttention, MoE, Module, RMSNorm, Stacked
 from ..nn.attention import decode_position
 from ..nn.module import checkpointed, layer, tree_map, tree_stack, unstack
@@ -183,18 +183,21 @@ class LMBlock(Module):
         c = self.cfg
         return RMSNorm(c.d_model, c.norm_eps, zero_centered=c.zero_centered_norm)(p[name], x)
 
-    def _residual_attn(self, p, x, h):
+    def _residual_attn(self, p, x, h, align=lambda h, x: h):
+        h = align(h, x)
         if self.cfg.post_norms:
             h = self._norm(p, "ln_attn_post", h)
         return x + h
 
-    def _ffn(self, p, x):
-        """x + the (post-normed) MLP or MoE of x, and the MoE's aux loss."""
+    def _ffn(self, p, x, align=lambda h, x: h):
+        """x + the (post-normed) MLP or MoE of x, and the MoE's aux loss;
+        ``align(h, x)`` places each output before its add."""
         h = self._norm(p, "ln_mlp", x)
         if self.use_moe:
             h, aux = self._mlp()(p["mlp"], h)
         else:
             h, aux = self._mlp()(p["mlp"], h), None
+        h = align(h, x)
         if self.cfg.post_norms:
             h = self._norm(p, "ln_mlp_post", h)
         return x + h, aux
@@ -213,7 +216,7 @@ class LMBlock(Module):
 
     def decode(self, p, x, cache, t, window):
         h, cache = self._attn().decode(p["attn"], self._norm(p, "ln_attn", x), cache, t, window=window)
-        x, _ = self._ffn(p, self._residual_attn(p, x, h))
+        x, _ = self._ffn(p, self._residual_attn(p, x, h, to_residual), to_residual)
         return x, cache
 
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
@@ -302,12 +305,14 @@ class TransformerLM(Module):
         x = self._embed(p, tokens, extra_embeds, embed_positions)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         spec = self.cfg.act_spec
+        pl = None if spec is not None else carry_placements(x)
+        x = carry(x, pl)
         for i, (blk, bp, w) in enumerate(self._layers(p)):
             stacked = i >= self.n_dense  # the JAX model constrains around its scanned blocks
             x = constrain(x, spec) if stacked else x
             x, aux = checkpointed(blk, self.cfg.remat, self.cfg.remat_policy)(bp, x, positions, w,
                                                                               index_positions=index)
-            x = constrain(x, spec) if stacked else x
+            x = carry(constrain(x, spec) if stacked else x, pl)
             aux_total = aux_total + aux
         x = self._final(p, x)
         if return_hidden:
@@ -342,9 +347,11 @@ class TransformerLM(Module):
         the prompt's length), in ``init_caches``' tree."""
         positions, index = self._positions(tokens, positions)
         x = self._embed(p, tokens)
-        caches = []
+        pl = carry_placements(x)
+        x, caches = carry(x, pl), []
         for blk, bp, w in self._layers(p):
             x, cache = blk.prefill(bp, x, positions, w, cache_dtype, index_positions=index)
+            x = carry(x, pl)
             caches.append(cache)
         x = self._final(p, x)
         return self._logits(p, x[:, -1:]), {"dense": caches[: self.n_dense],
@@ -357,7 +364,10 @@ class TransformerLM(Module):
         written in place (each layer's view of the stacked caches)."""
         t = decode_position(t, token)
         x = self._embed(p, token)
+        pl = carry_placements(x)
+        x = carry(x, pl)
         for i, (blk, bp, w) in enumerate(self._layers(p)):
             cache = caches["dense"][i] if i < self.n_dense else layer(caches["scan"], i - self.n_dense)
             x, _ = blk.decode(bp, x, cache, t, w)
+            x = carry(x, pl)
         return self._logits(p, self._final(p, x)), caches

@@ -14,7 +14,7 @@ from typing import Any
 
 import torch
 
-from ..dist.sharding import constrain
+from ..dist.sharding import carry, carry_placements, constrain, to_residual
 from ..nn import Embedding, Mamba2Block, Module, RMSNorm, Stacked
 from ..nn.module import checkpointed, layer, tree_map, tree_stack, unstack
 
@@ -92,7 +92,7 @@ class Mamba2LayerWrapped(Module):
 
     def decode(self, p, x, cache):
         y, cache = self.cfg.block().decode(p["mixer"], self._norm(p, x), cache)
-        return x + y, cache
+        return x + to_residual(y, x), cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,8 +119,11 @@ class Mamba2LM(Module):
     def __call__(self, p, tokens, positions=None, return_hidden=False):
         x = self._embed(p, tokens)
         blk = checkpointed(Mamba2LayerWrapped(self.cfg), self.cfg.remat)
+        spec = self.cfg.act_spec
+        pl = None if spec is not None else carry_placements(x)
+        x = carry(x, pl)
         for bp in unstack(p["blocks"]):
-            x = constrain(blk(bp, constrain(x, self.cfg.act_spec)), self.cfg.act_spec)
+            x = carry(constrain(blk(bp, constrain(x, spec)), spec), pl)
         x = self._final(p, x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return (x, aux) if return_hidden else (self._logits(p, x), aux)
@@ -139,9 +142,11 @@ class Mamba2LM(Module):
     def prefill(self, p, tokens, positions=None, cache_dtype=torch.bfloat16):
         x = self._embed(p, tokens)
         blk = Mamba2LayerWrapped(self.cfg)
-        caches = []
+        pl = carry_placements(x)
+        x, caches = carry(x, pl), []
         for bp in unstack(p["blocks"]):
             x, cache = blk.prefill(bp, x, cache_dtype)
+            x = carry(x, pl)
             caches.append(cache)
         return self._logits(p, self._final(p, x[:, -1:])), tree_stack(caches)
 
@@ -151,6 +156,9 @@ class Mamba2LM(Module):
         not read: the SSM state carries the position."""
         x = self._embed(p, token)
         blk = Mamba2LayerWrapped(self.cfg)
+        pl = carry_placements(x)
+        x = carry(x, pl)
         for i, bp in enumerate(unstack(p["blocks"])):
             x, _ = blk.decode(bp, x, layer(caches, i))
+            x = carry(x, pl)
         return self._logits(p, self._final(p, x)), caches

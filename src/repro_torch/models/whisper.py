@@ -18,6 +18,7 @@ from typing import Any
 
 import torch
 
+from ..dist.sharding import carry, carry_placements, to_residual
 from ..nn import MLP, Attention, Embedding, LayerNorm, Module, ParamSpec, Stacked, normal_init
 from ..nn.attention import decode_position
 from ..nn.module import checkpointed, layer, tree_map, tree_stack, unstack
@@ -127,9 +128,10 @@ class DecBlock(Module):
     def decode(self, p, x, cache, t):
         c = self.cfg
         y, self_kv = c.attn().decode(p["self_attn"], c.norm()(p["ln1"], x), cache["self"], t)
-        x = x + y
-        x = x + c.attn().attend_kv(p["cross_attn"], c.norm()(p["ln_x"], x), cache["cross_k"], cache["cross_v"])
-        x = x + c.mlp()(p["mlp"], c.norm()(p["ln2"], x))
+        x = x + to_residual(y, x)
+        y = c.attn().attend_kv(p["cross_attn"], c.norm()(p["ln_x"], x), cache["cross_k"], cache["cross_v"])
+        x = x + to_residual(y, x)
+        x = x + to_residual(c.mlp()(p["mlp"], c.norm()(p["ln2"], x)), x)
         return x, {"self": self_kv, "cross_k": cache["cross_k"], "cross_v": cache["cross_v"]}
 
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None, abstract=False):
@@ -166,8 +168,10 @@ class WhisperModel(Module):
         c = self.cfg
         x = frames.to(c.act_dtype) + sinusoid_pos(frames.shape[1], c.d_model, frames.device).to(c.act_dtype)
         blk = checkpointed(EncBlock(c), c.remat)
+        pl = carry_placements(x)
+        x = carry(x, pl)
         for bp in unstack(p["enc_blocks"]):
-            x = blk(bp, x)
+            x = carry(blk(bp, x), pl)
         return c.norm()(p["ln_enc"], x)
 
     def _dec_embed(self, p, tokens):
@@ -190,8 +194,10 @@ class WhisperModel(Module):
         enc_out = self.encode(p, frames)
         x = self._dec_embed(p, tokens)
         blk = checkpointed(DecBlock(c), c.remat)
+        pl = carry_placements(x)
+        x = carry(x, pl)
         for bp in unstack(p["dec_blocks"]):
-            x = blk(bp, x, enc_out)
+            x = carry(blk(bp, x, enc_out), pl)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
             return c.norm()(p["ln_dec"], x), aux
@@ -210,9 +216,11 @@ class WhisperModel(Module):
         enc_out = self.encode(p, frames)
         x = self._dec_embed(p, tokens)
         blk = DecBlock(c)
-        caches = []
+        pl = carry_placements(x)
+        x, caches = carry(x, pl), []
         for bp in unstack(p["dec_blocks"]):
             x, cache = blk.prefill(bp, x, enc_out, cache_dtype)
+            x = carry(x, pl)
             caches.append(cache)
         return self._logits(p, x[:, -1:]), tree_stack(caches)
 
@@ -229,6 +237,9 @@ class WhisperModel(Module):
         x = Embedding(c.vocab, c.d_model)(p["embed"], token).to(c.act_dtype)
         x = x + p["pos_embed"].index_select(0, pe_idx).to(c.act_dtype)
         blk = DecBlock(c)
+        pl = carry_placements(x)
+        x = carry(x, pl)
         for i, bp in enumerate(unstack(p["dec_blocks"])):
             x, _ = blk.decode(bp, x, layer(caches, i), t)
+            x = carry(x, pl)
         return self._logits(p, x), caches

@@ -19,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import blockwise, reduce_partials
+from ..dist.sharding import blockwise
 from ..kernels import grad_route
 from ..kernels.ssd import ops as ssd_ops
 from ..kernels.ssd.ref import segsum, ssd_chunked  # noqa: F401  (re-exported)
@@ -202,11 +202,6 @@ class Mamba2Block(Module):
         B_ = x.shape[0]
         di, g, n, H, P = self.d_inner, self.n_groups, self.d_state, self.n_heads, self.head_dim
         z, xbc, dt = self._project(p, x)  # (B,1,...)
-        # the conv state keeps the cache's placements: a partial new column
-        # (the residual stream's row-parallel sum) is reduced before the
-        # window, which spares the reduction of the window's tail at the copy
-        # and that of the convolution's output
-        xbc = reduce_partials(xbc)
         window = torch.cat([cache["conv"].to(x.dtype), xbc], dim=1)  # (B, k, conv_dim)
         conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(x.dtype)) + p["conv_b"].to(x.dtype)
         xbc_t = F.silu(conv_out)  # (B, conv_dim)
