@@ -151,26 +151,34 @@ toolkit, this
    parameters and AdamW state placed by ``dist.train_shardings``, the
    batch by ``shard_batch``), ``LM_TRAIN_B`` x ``LM_TRAIN_S``
    tokens, bf16 activations, remat on, 6 steps with one micro-batch and 4
-   with two (``LM_TRAIN_RUNS``): every loss finite, every parameter leaf
-   changed, ms per step (synchronised, from step 2), tokens/s, peak
-   memory, no kernel launch under autograd and the plain routes taken
+   with two (``LM_TRAIN_RUNS``; the step captured into one CUDA graph at
+   step 2 and replayed after, ``make_lm_train_step(..., donate=True)``):
+   every loss finite, every parameter leaf changed, ms per step
+   (synchronised, the replays from step 3), tokens/s, peak memory, no
+   kernel launch under autograd and the plain routes taken
    (``kernels.grad_routes``: the forward's and remat's recompute); the same
    6 steps on the plain path (plain tensors, ``make_lm_train_step`` in the
-   loop, the launcher's batches: ms, tokens/s, peak memory), and step 1
-   of the two paths from the same parameters and batch, loss and every
-   parameter within ``MESH_STEP1_RTOL``, one more mesh step under
-   ``torch.profiler``; the plain step with the parent's layer loop
+   loop, the launcher's batches: ms, tokens/s, peak memory), and steps 1
+   and 2 (the eager warm-up, the capture and its replay) of the two paths
+   from the same parameters and batches, losses and every parameter within
+   ``MESH_STEP1_RTOL``, one more mesh step, a replay, under
+   ``torch.profiler``; the plain eager step with the parent's layer loop
    (``t[i]`` per layer) and this tree's (``unstack``) in turns, then the
    one-rank mesh step the same way (``stacked_grads_ab``: ms, peak,
    losses, device busy and the SelectBackward0 / UnbindBackward0 split of
    the plain step), failing where the backward
    makes a stacked leaf's full-shape tensor more than once a leaf
-   (``stacked_grad_copies``); step 1
+   (``stacked_grad_copies``); the captured step and ``step.eager`` in
+   turns, plain and on the one-rank NCCL mesh (``lm_train_graph_ab``: ms a
+   step, device busy and idle share under ``torch.profiler``, peak
+   allocated and reserved memory, host copies of a captured step), failing
+   unless losses, parameters and counts are bit-equal; step 1
    of gemma2-2b at 2 layers in f32 against the same step on the CPU
    (``LM_STEP1_LOSS_RTOL``, ``LM_STEP1_GRAD_TOL`` per gradient leaf); one
    bf16 step each of hymba-1.5b, mamba2-2.7b and whisper-small at full
    width and 2 layers (``LM_TRAIN_FAMILIES``: loss finite, ms, peak
-   memory, the SSD and attention plain routes); and the loop's fault path
+   memory, the SSD and attention plain routes, step 2 a replay of the
+   step's graph); and the loop's fault path
    at the smoke gemma2-2b (a checkpoint and a rescue checkpoint after an
    injected data failure each restore bit for bit, the resumed run reaches
    its last step, ``supervise`` restarts a command that fails once);
@@ -753,8 +761,8 @@ def train_phase(torch, smi, dev):
 
 
 def check_train_captured(step, count, what):
-    """``step`` (a captured vision train step) ran ``count`` calls as
-    replays of one CUDA graph."""
+    """``step`` (a captured train step) ran ``count`` calls as replays of
+    one CUDA graph."""
     replays = [g.replays for g in step.graphs.values()]
     if replays != [count]:
         raise AssertionError(f"{what}: {len(replays)} CUDA graphs replayed {replays} times, not one {count} times")
@@ -2947,11 +2955,12 @@ def _lm_batch(torch, rng, cfg, B, S, dev, whisper=False):
 
 
 # The one-rank mesh step against the plain step (gemma2-2b at full width and
-# depth, bf16, step 1), fixed before the first run: one rank runs the plain
-# step's local ops on the same values (DTensor adds dispatch, not
-# arithmetic), so the loss and every parameter agree to float32 rounding of
-# the sums whose order the card may change between two launches (cuBLAS's
-# split choices, the embedding backward's accumulation): 1e-6 relative
+# depth, bf16, steps 1 and 2: the key's eager warm-up, then its capture and
+# first replay), fixed before the first run: one rank runs the plain step's
+# local ops on the same values (DTensor adds dispatch, not arithmetic), so
+# the losses and every parameter agree to float32 rounding of the sums whose
+# order the card may change between two launches (cuBLAS's split choices,
+# the embedding backward's accumulation): 1e-6 relative
 MESH_STEP1_RTOL = 1e-6
 
 
@@ -2961,11 +2970,13 @@ def _local(t):
 
 
 def mesh_vs_plain_step1(torch, smi, dev, cfg, init, steps):
-    """Step 1 of the launcher's gemma2-2b run through the distributed stack
-    (a one-rank NCCL mesh, ``train_shardings``, ``device_put``, ``on_mesh``,
-    ``shard_batch``, ``act_spec`` set) against the same step on plain
-    tensors, from the same parameters and batch; then one more mesh step
-    under torch.profiler."""
+    """Steps 1 and 2 of the launcher's gemma2-2b run through the
+    distributed stack (a one-rank NCCL mesh, ``train_shardings``,
+    ``device_put``, ``on_mesh``, ``shard_batch``, ``act_spec`` set) against
+    the same steps on plain tensors, from the same parameters and batches:
+    step 1 is each key's eager warm-up, step 2 its capture and first replay
+    (the captured path); then one more mesh step, a replay, under
+    torch.profiler."""
     import torch.distributed as dist
 
     from repro_torch.configs import build_model
@@ -2981,7 +2992,7 @@ def mesh_vs_plain_step1(torch, smi, dev, cfg, init, steps):
     model = build_model(dataclasses.replace(cfg, act_spec=("data",)))
     opt = AdamW(lr=warmup_cosine(1e-3, 50, steps), weight_decay=0.01)
     data = token_batches(LM_TRAIN_B, LM_TRAIN_S, cfg.vocab, seed=0)
-    host = [next(data) for _ in range(2)]
+    host = [next(data) for _ in range(3)]
     mesh = make_host_mesh(1, device=dev)
     try:
         params = tree_map(lambda t: t.to(dev, copy=True), init)
@@ -2989,37 +3000,45 @@ def mesh_vs_plain_step1(torch, smi, dev, cfg, init, steps):
         sh = train_shardings(mesh, model.axes(), model.abstract(), state, LM_TRAIN_B)
         params, state = device_put(params, sh.params), device_put(state, sh.opt_state)
         step = on_mesh(make_lm_train_step(model, opt, donate=True))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, state, m = step(params, state, shard_batch(host[0], sh.batch))  # donated: the same trees
-        mesh_loss = float(m["loss"])
-        first_ms = (time.perf_counter() - t0) * 1e3
+        mesh_losses, ms = [], []
+        for b in host[:2]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, shard_batch(b, sh.batch))  # donated: the same buffers
+            mesh_losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
         snap = [t.to_local().clone() for t in tree_leaves(params)]
-        split = time_split(torch, lambda p, b: step(p, state, b), params, shard_batch(host[1], sh.batch))
+        split = time_split(torch, lambda p, b: step(p, state, b), params, shard_batch(host[2], sh.batch))
+        check_train_captured(step, 2, "the one-rank mesh step")
         del params, state, step, m
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
     params = tree_map(lambda t: t.to(dev, copy=True), init)
-    params, _, m = make_lm_train_step(model, opt, donate=True)(
-        params, opt.init(params), {k: torch.from_numpy(v).to(dev) for k, v in host[0].items()})
-    plain_loss = float(m["loss"])
+    state, plain = opt.init(params), make_lm_train_step(model, opt, donate=True)
+    plain_losses = []
+    for b in host[:2]:
+        params, state, m = plain(params, state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        plain_losses.append(float(m["loss"]))
+    check_train_captured(plain, 1, "the plain step")
     rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(snap, tree_leaves(params))]
-    loss_rel = _rel(mesh_loss, plain_loss)
-    del params, snap, m
+    loss_rel = max(_rel(a, b) for a, b in zip(mesh_losses, plain_losses))
+    del params, state, plain, snap, m
     torch.cuda.empty_cache()
-    row = {"loss": [mesh_loss, plain_loss], "loss_rel": loss_rel, "param_rel": rel, "first_step_ms": first_ms,
-           "split": split}
-    print(f"gemma2-2b step 1, one-rank mesh (DTensor) vs plain tensors, the same parameters and batch: loss "
-          f"{mesh_loss:.7f} / {plain_loss:.7f} (rel {loss_rel:.2e}), parameters after AdamW: worst leaf max|delta| / "
-          f"max|leaf| {max(rel):.2e} over {len(rel)} leaves (<= {MESH_STEP1_RTOL:g}); the mesh step 1 took "
-          f"{first_ms:.1f} ms on the host clock (DTensor's sharding propagation meets every op for the first time)")
+    row = {"loss": [mesh_losses, plain_losses], "loss_rel": loss_rel, "param_rel": rel, "first_step_ms": ms[0],
+           "capture_step_ms": ms[1], "split": split}
+    print(f"gemma2-2b steps 1-2 (the eager warm-up, then the capture and its replay), one-rank mesh (DTensor) vs plain "
+          f"tensors, the same parameters and batches: losses " + ", ".join(f"{a:.7f} / {b:.7f}" for a, b in
+                                                                           zip(mesh_losses, plain_losses))
+          + f" (worst rel {loss_rel:.2e}), parameters after step 2: worst leaf max|delta| / max|leaf| {max(rel):.2e} "
+          f"over {len(rel)} leaves (<= {MESH_STEP1_RTOL:g}); the mesh step 1 took {ms[0]:.1f} ms on the host clock "
+          f"(DTensor's sharding propagation meets every op for the first time), step 2 {ms[1]:.1f} ms")
     if split:
         kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["by_kind"].items(), key=lambda kv: -kv[1]))
-        print(f"  mesh step 2 under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy {split['busy_ms']:.2f} "
-              f"ms ({kinds}), idle {100 * split['idle_share']:.1f}% | {smi}")
+        print(f"  mesh step 3 (a replay) under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy "
+              f"{split['busy_ms']:.2f} ms ({kinds}), idle {100 * split['idle_share']:.1f}% | {smi}")
     if not (loss_rel <= MESH_STEP1_RTOL and max(rel) <= MESH_STEP1_RTOL):
-        raise AssertionError(f"one-rank mesh step 1 differs from the plain step: loss {loss_rel:.3e}, "
+        raise AssertionError(f"one-rank mesh steps 1-2 differ from the plain steps: loss {loss_rel:.3e}, "
                              f"parameters {max(rel):.3e}")
     return row
 
@@ -3037,7 +3056,7 @@ def mesh_vs_plain_step1(torch, smi, dev, cfg, init, steps):
 # and the synchronised step to about 680-720 ms; the peak is no higher than
 # the parent's; the losses are bit-equal
 STACKED_RUNS = ("parent", "change", "change", "parent")
-STACKED_STEPS = 5  # timed steps a run, from the same parameters and batches
+STACKED_STEPS = 3  # steps a run from the same parameters and batches (the mean from step 2)
 STACKED_PREDICTED_MS = (680.0, 720.0)
 STACKED_PREDICTED_BUSY_MS = 560.0
 
@@ -3067,7 +3086,8 @@ def stacked_grads_ab(torch, smi, dev, cfg, init):
     """The gemma2-2b step (``cfg``: full depth, bf16, remat) with this
     tree's layer loop and the parent's, in ``STACKED_RUNS`` order, on plain
     tensors and then on a one-rank NCCL mesh (``act_spec`` over "data", as
-    in ``mesh_vs_plain_step1``): each run ``STACKED_STEPS`` donated steps
+    in ``mesh_vs_plain_step1``), uncaptured (``step.eager``, so that each
+    formulation runs its own ops): each run ``STACKED_STEPS`` donated steps
     from ``init`` on the same batches (ms synchronised, peak memory,
     losses); one plain step of each under ``stacked_grad_copies`` (fails
     where a stacked leaf's gradient is made more than once) and one of each
@@ -3112,7 +3132,7 @@ def stacked_grads_ab(torch, smi, dev, cfg, init):
 
     model = build_model(cfg)
     runs = {"plain": [], "mesh": []}
-    step = make_lm_train_step(model, opt, donate=True)
+    step = make_lm_train_step(model, opt, donate=True).eager  # uncaptured: each formulation runs its own ops
     for formulation in STACKED_RUNS:
         params, state = fresh()
         runs["plain"].append(timed(formulation, step, params, state, batches))
@@ -3125,7 +3145,7 @@ def stacked_grads_ab(torch, smi, dev, cfg, init):
             params, state = fresh()
             sh = train_shardings(mesh, mesh_model.axes(), mesh_model.abstract(), state, LM_TRAIN_B)
             params, state = device_put(params, sh.params), device_put(state, sh.opt_state)
-            mesh_step = on_mesh(make_lm_train_step(mesh_model, opt, donate=True))
+            mesh_step = on_mesh(make_lm_train_step(mesh_model, opt, donate=True)).eager
             runs["mesh"].append(timed(formulation, mesh_step, params, state, [shard_batch(b, sh.batch) for b in host]))
             del params, state, mesh_step
         finally:
@@ -3199,6 +3219,235 @@ def stacked_grads_ab(torch, smi, dev, cfg, init):
     return row
 
 
+# The captured LM train step against its eager ops (``lm_train_graph_ab``):
+# the gemma2-2b step (full width and depth, LM_TRAIN_B x LM_TRAIN_S, bf16,
+# remat, AdamW with a warmup_cosine rate) as ``make_lm_train_step(...,
+# donate=True)`` runs it on the card (one CUDA graph a key, written into the
+# trees it was captured on) and as ``step.eager`` runs it (the same ops, one
+# by one), in turns, on plain tensors and then on a one-rank NCCL mesh
+# (``on_mesh``, ``act_spec`` over "data"). Every run starts from the same
+# values in the same buffers (the graph's) and takes the same batches.
+# Predicted before the first run from the eager step's profile on the card
+# (device busy 556.46-561.38 ms; eager plain 682.40-1085.66 ms a step, mesh
+# 1.47-1.91x the plain step, idle 61.3% under the profiler; peak 44.11
+# GiB): the captured plain step falls to about its device busy,
+# 560-600 ms; the captured mesh step within 5% of the captured plain one,
+# its idle share under 10%; losses and parameters bit-equal to the eager
+# step's; the peak no higher than 44.11 GiB plus the static batch
+GRAPH_AB_RUNS = ("eager", "captured", "captured", "eager")
+GRAPH_AB_STEPS = 4  # timed steps a run
+GRAPH_AB_SPLIT = 2  # steps of each kind under torch.profiler
+GRAPH_AB_PREDICTED_MS = (560.0, 600.0)
+GRAPH_AB_PREDICTED_MESH_RATIO = 1.05
+GRAPH_AB_PREDICTED_IDLE = 0.10
+GRAPH_AB_EAGER_PEAK_GIB = 44.11
+
+
+def lm_train_graph_ab(torch, smi, dev, cfg, init):
+    """The gemma2-2b step (``cfg``: full depth, bf16, remat) captured and
+    eager in ``GRAPH_AB_RUNS`` order, on plain tensors, then on a one-rank
+    NCCL mesh (``_graph_ab_path``). Returns the rows."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import build_model
+    from repro_torch.data import shard_batch
+    from repro_torch.dist import device_put, on_mesh, train_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.nn.module import tree_leaves, tree_map
+    from repro_torch.train import AdamW, make_lm_train_step
+    from repro_torch.train.optimizer import warmup_cosine
+
+    opt = AdamW(lr=warmup_cosine(1e-3, 2, 50), weight_decay=0.01)
+    rng = np.random.default_rng(6)
+    host = [{k: v.numpy() for k, v in _lm_batch(torch, rng, cfg, LM_TRAIN_B, LM_TRAIN_S, torch.device("cpu")).items()}
+            for _ in range(GRAPH_AB_STEPS)]
+    rows = {}
+    for path in ("plain", "mesh"):
+        mesh = make_host_mesh(1, device=dev) if path == "mesh" else None
+        try:
+            model = build_model(dataclasses.replace(cfg, act_spec=("data",)) if mesh else cfg)
+            params = tree_map(lambda t: t.to(dev, copy=True), init)
+            state = opt.init(params)
+            if mesh:
+                sh = train_shardings(mesh, model.axes(), model.abstract(), state, LM_TRAIN_B)
+                params, state = device_put(params, sh.params), device_put(state, sh.opt_state)
+                batches = [shard_batch(b, sh.batch) for b in host]
+            else:
+                batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in host]
+
+            def make_step():
+                step = make_lm_train_step(model, opt, donate=True)
+                return on_mesh(step) if mesh else step
+
+            rows[path] = _graph_ab_path(torch, smi, path, make_step, {"params": params, "state": state},
+                                        tree_leaves(init), batches)
+            del params, state, batches
+        finally:
+            if mesh is not None:
+                dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    plain, mesh_row = rows["plain"], rows["mesh"]
+    ratio = mesh_row["captured_ms"] / plain["captured_ms"]
+    lo, hi = GRAPH_AB_PREDICTED_MS
+    print(f"  captured mesh / captured plain {ratio:.3f} (predicted <= {GRAPH_AB_PREDICTED_MESH_RATIO:g}); captured "
+          f"plain {plain['captured_ms']:.2f} ms a step (predicted {lo:g}-{hi:g}); eager mesh / eager plain "
+          f"{mesh_row['eager_ms'] / plain['eager_ms']:.3f} | {smi}")
+    rows["mesh_over_plain_captured"] = ratio
+    return rows
+
+
+def _graph_ab_path(torch, smi, path, make_step, trees, init_leaves, batches):
+    """``lm_train_graph_ab`` on one path: ``make_step()``'s step (captured)
+    and its ``eager`` on ``trees`` (``params``, ``state``), each run
+    ``GRAPH_AB_STEPS`` steps from ``init_leaves`` in the same buffers. The
+    first eager run comes before any capture; then the key's warm-up and
+    capture, outside the clock (their ms, peak allocated and reserved, the
+    pool they leave; one eager step before, untimed), the two captured runs (every step a replay), the host
+    copies of one captured step (``served_copies``) and ``GRAPH_AB_SPLIT``
+    captured steps under ``torch.profiler``; then the graph is dropped,
+    its pool released, before the last eager run and the eager steps under
+    the profiler (the graph's pool and the eager step's cache together
+    would not fit beside the trees). Each run: ms a step synchronised,
+    peak allocated and reserved, the reserve it added. Fails unless every
+    run's losses, final parameters and counts are bit-equal, the captured
+    runs replay one graph, and a captured step copies only the batch in
+    and clones only the metrics out."""
+    from repro_torch.nn.module import tree_leaves
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    def reset():
+        """The parameters back to ``init`` in their buffers, the moments
+        and the count to 0."""
+        with torch.no_grad():
+            for t, h in zip(tree_leaves(trees["params"]), init_leaves):
+                local(t).copy_(h)
+            for t in tree_leaves({k: v for k, v in trees["state"].items() if k != "step"}):
+                local(t).zero_()
+            count = trees["state"]["step"]
+            if count.device.type == "cpu" and not hasattr(count, "placements"):
+                trees["state"] = {**trees["state"], "step": torch.zeros((), dtype=torch.int32)}
+            else:
+                local(count).zero_()
+        torch.cuda.synchronize()
+
+    def run(call, n=GRAPH_AB_STEPS):
+        losses, ms = [], []
+        for b in batches[:n]:
+            t0 = time.perf_counter()
+            trees["params"], trees["state"], m = call(trees["params"], trees["state"], b)
+            losses.append(m["loss"].item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    runs, ref, reserved = [], [], [torch.cuda.memory_reserved()]
+
+    def timed(kind, call, graphs):
+        reset()
+        replays = sum(g.replays for g in graphs.values())
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = run(call)
+        row = {"kind": kind, "ms": ms, "step_ms": sum(ms) / len(ms), "losses": losses,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+               "reserved_added_gib": (torch.cuda.memory_reserved() - reserved[0]) / 2**30,
+               "replays": sum(g.replays for g in graphs.values()) - replays,
+               "count": int(local(trees["state"]["step"]))}
+        reserved[0] = torch.cuda.memory_reserved()
+        got = [local(t).to("cpu") for t in tree_leaves(trees["params"])]
+        if not ref:
+            ref.extend((losses, got))
+        else:
+            row["bit_equal"] = losses == ref[0] and all(torch.equal(a, b) for a, b in zip(got, ref[1]))
+        runs.append(row)
+
+    step = make_step()
+    eager = step.eager
+    reset()
+    run(eager, 1)  # first-use work (DTensor's sharding propagation on the mesh) outside the clock
+    timed("eager", eager, {})
+    # the key's warm-up (call 1, eager) and capture (call 2, then its first replay), outside the clock
+    torch.cuda.synchronize()
+    held0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    _, first = run(step, 2)
+    capture = {"warm_up_ms": first[0], "capture_and_replay_ms": first[1],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "held_above_gib": (torch.cuda.memory_allocated() - held0) / 2**30,
+               "reserved_above_gib": (torch.cuda.memory_reserved() - reserved0) / 2**30,
+               "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+    reserved[0] = torch.cuda.memory_reserved()
+    timed("captured", step, step.graphs)
+    timed("captured", step, step.graphs)
+    reset()
+    run(step, 1)
+    with served_copies(torch) as copies:
+        run(step, 1)
+    by_op = {}
+    for key, c in copies.rows.items():
+        by_op[key.split(" ")[0]] = by_op.get(key.split(" ")[0], 0) + c
+    reset()
+    splits = {"captured": time_split(torch, lambda *_: run(step, GRAPH_AB_SPLIT), None, None)}
+    graphs = [g.replays for g in step.graphs.values()]
+    del step  # the graph and its pool
+    torch.cuda.empty_cache()
+    reserved[0] = torch.cuda.memory_reserved()
+    timed("eager", eager, {})
+    reset()
+    splits["eager"] = time_split(torch, lambda *_: run(eager, GRAPH_AB_SPLIT), None, None)
+    eager_ms = [r["step_ms"] for r in runs if r["kind"] == "eager"]
+    captured_ms = [r["step_ms"] for r in runs if r["kind"] == "captured"]
+    same = all(r.get("bit_equal", True) for r in runs)
+    counts_ok = all(r["count"] == GRAPH_AB_STEPS for r in runs)
+    n_batch, n_metrics = len(tree_leaves(batches[0])), 5
+    row = {"capture": capture, "runs": runs, "copies": by_op, "copy_bytes": copies.bytes,
+           "eager_ms": sum(eager_ms) / len(eager_ms), "captured_ms": sum(captured_ms) / len(captured_ms),
+           "graphs": graphs, "bit_equal": same,
+           "splits": {k: {n: v for n, v in sp.items() if n not in ("backward", "other")} for k, sp in splits.items()}}
+    lo, hi = GRAPH_AB_PREDICTED_MS
+    print(f"gemma2-2b train step captured vs eager, {path} ({LM_TRAIN_B} x {LM_TRAIN_S}, bf16, remat, full depth; runs "
+          f"{' / '.join(GRAPH_AB_RUNS)}, {GRAPH_AB_STEPS} steps each from the same values in the same buffers): "
+          f"ms a step (synchronised) eager " + ", ".join(f"{v:.2f}" for v in eager_ms) + ", captured "
+          + ", ".join(f"{v:.2f}" for v in captured_ms)
+          + (f" (predicted {lo:g}-{hi:g})" if path == "plain" else "") + f"; losses, parameters and counts "
+          f"{'bit-equal in all four runs' if same and counts_ok else 'DIFFER'}; key's warm-up {capture['warm_up_ms']:.1f} "
+          f"ms, capture + first replay {capture['capture_and_replay_ms']:.1f} ms, their peak allocated "
+          f"{capture['peak_gib']:.2f} GiB (predicted <= {GRAPH_AB_EAGER_PEAK_GIB:g}), reserved at most "
+          f"{capture['peak_reserved_gib']:.2f} GiB, after them held +{capture['held_above_gib']:.2f} GiB and reserved +"
+          f"{capture['reserved_above_gib']:.2f} GiB (the graph's pool, the eager cache released); a run's peak "
+          f"allocated / reserved and the reserve it added: "
+          + ", ".join(f"{r['kind']} {r['peak_gib']:.2f} / {r['peak_reserved_gib']:.2f} +{r['reserved_added_gib']:.2f}"
+                      for r in runs)
+          + f" GiB (a replay allocates nothing: its working set lies in the pool; the last eager run after the pool "
+          f"was released); graphs {len(graphs)}, replays in the runs {[r['replays'] for r in runs]}; one captured "
+          f"step's host copies {json.dumps(by_op)} ({sum(copies.bytes.values()) / 1e6:.3f} MB) | {smi}")
+    for kind, sp in splits.items():
+        if not sp:
+            print(f"  {kind}, {path}: not measured (the profiler recorded no kernel)")
+            continue
+        kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(sp["by_kind"].items(), key=lambda kv: -kv[1]))
+        note = f" (predicted under {100 * GRAPH_AB_PREDICTED_IDLE:g}%)" if kind == "captured" else ""
+        print(f"  {kind}, {path}, {GRAPH_AB_SPLIT} steps under torch.profiler: {sp['wall_ms']:.2f} ms wall, device "
+              f"busy {sp['busy_ms']:.2f} ms ({sp['busy_ms'] / GRAPH_AB_SPLIT:.2f} a step; {kinds}), idle "
+              f"{100 * sp['idle_share']:.1f}%{note}")
+    if not (same and counts_ok):
+        raise AssertionError(f"gemma2-2b {path}: captured and eager runs differ: "
+                             + json.dumps([{k: r.get(k) for k in ("kind", "losses", "count", "bit_equal")}
+                                           for r in runs]))
+    want = [0 if k == "eager" else GRAPH_AB_STEPS for k in GRAPH_AB_RUNS]
+    if len(graphs) != 1 or [r["replays"] for r in runs] != want:
+        raise AssertionError(f"gemma2-2b {path}: {len(graphs)} graphs, replays {[r['replays'] for r in runs]}, "
+                             f"want one graph replayed {want}")
+    if by_op != {"copy_": n_batch, "clone": n_metrics}:
+        raise AssertionError(f"gemma2-2b {path}: a captured step copied {by_op}, want {n_batch} copy_ (the batch) "
+                             f"and {n_metrics} clone (the metrics)")
+    return row
+
+
 def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
     """LM training on the card (item 12 of the docstring). Returns rows."""
     import sys as _sys
@@ -3263,10 +3512,10 @@ def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
         if stuck:
             raise AssertionError(f"gemma2-2b n_micro {n_micro}: leaves {stuck} unchanged after {steps} steps")
         ms = [h["time"] * 1e3 for h in hist]
-        step_ms = sum(ms[1:]) / len(ms[1:])
+        step_ms = sum(ms[2:]) / len(ms[2:])  # replays: step 1 is the key's warm-up, step 2 its capture
         split = {}
-        if n_micro == 1:  # one more plain step of the trained state under torch.profiler
-            step = make_lm_train_step(build_model(bcfg), AdamW(lr=1e-4, weight_decay=0.01), donate=True)
+        if n_micro == 1:  # one more plain eager step of the trained state under torch.profiler
+            step = make_lm_train_step(build_model(bcfg), AdamW(lr=1e-4, weight_decay=0.01), donate=True).eager
             batch = _lm_batch(torch, np.random.default_rng(3), spec.config, LM_TRAIN_B, LM_TRAIN_S, dev)
             split = time_split(torch, lambda p, b: step(p, opt_state, b), params, batch)
             del step, batch
@@ -3278,14 +3527,15 @@ def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
         print(f"gemma2-2b train ({n:,} parameters, full depth, {LM_TRAIN_B} x {LM_TRAIN_S} tokens, bf16, remat, "
               f"n_micro {n_micro}, launch.train.main on a one-rank NCCL mesh, DTensor parameters): {steps} steps, "
               f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f} (all finite), all {len(tree_leaves(init))} "
-              f"leaves changed; step ms {step_ms:.2f} (steps 2-{steps}, synchronised; step 1 {ms[0]:.2f}), "
+              f"leaves changed; step ms {step_ms:.2f} (steps 3-{steps}, CUDA-graph replays, synchronised; step 1, "
+              f"the eager warm-up, {ms[0]:.2f}, step 2, the capture and its replay, {ms[1]:.2f}), "
               f"{row['tokens_per_s']:,.0f} tokens/s, peak {peak / 2**30:.2f} GiB; kernel launches 0, plain routes "
               f"taken under autograd {json.dumps(routes)} ({routes.get('flash_attention', 0) / steps:g} flash a "
               f"step: {spec.config.n_layers} layers x {n_micro} micro-batches x forward and remat's recompute); "
               f"main {wall:.1f} s | {smi}")
         if split:
             kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["by_kind"].items(), key=lambda kv: -kv[1]))
-            print(f"  one more plain step under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy "
+            print(f"  one more plain eager step under torch.profiler: {split['wall_ms']:.2f} ms wall, device busy "
                   f"{split['busy_ms']:.2f} ms ({kinds}), idle {100 * split['idle_share']:.1f}%; largest other: "
                   + "; ".join(f"{k} {v:.2f}" for k, v in split["top_other"]))
             print("  its device ms by op (own kernels): " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_ops"]))
@@ -3315,14 +3565,15 @@ def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
     no_launches("gemma2-2b plain training")
     hist = out.history
     ms = [h["time"] * 1e3 for h in hist]
-    step_ms = sum(ms[1:]) / len(ms[1:])
+    step_ms = sum(ms[2:]) / len(ms[2:])
     mesh_row = rows["gemma2_2b n_micro 1"]
     loss_rel = [_rel(a, h["loss"]) for a, h in zip(mesh_row["losses"], hist)]
     rows["gemma2_2b plain"] = {"path": "plain", "n_micro": 1, "steps": steps, "losses": [h["loss"] for h in hist],
                                "ms": ms, "step_ms": step_ms, "tokens_per_s": LM_TRAIN_B * LM_TRAIN_S / (step_ms / 1e3),
                                "peak_bytes": peak, "loss_rel_vs_mesh": loss_rel}
     print(f"gemma2-2b train on the plain path (plain tensors, make_lm_train_step in run_train_loop, the launcher's "
-          f"batches): {steps} steps, step ms {step_ms:.2f} (steps 2-{steps}; step 1 {ms[0]:.2f}), "
+          f"batches): {steps} steps, step ms {step_ms:.2f} (steps 3-{steps}, replays; step 1 {ms[0]:.2f}, step 2 "
+          f"{ms[1]:.2f}), "
           f"{LM_TRAIN_B * LM_TRAIN_S / (step_ms / 1e3):,.0f} tokens/s, peak {peak / 2**30:.2f} GiB; mesh path "
           f"{mesh_row['step_ms']:.2f} ms ({mesh_row['step_ms'] / step_ms:.3f}x), {mesh_row['tokens_per_s']:,.0f} "
           f"tokens/s, peak {mesh_row['peak_bytes'] / 2**30:.2f} GiB; loss per step relative to the mesh path's: "
@@ -3331,6 +3582,7 @@ def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
     torch.cuda.empty_cache()
     rows["gemma2_2b step1 mesh vs plain"] = mesh_vs_plain_step1(torch, smi, dev, bcfg, init, steps)
     rows["gemma2_2b stacked grads"] = stacked_grads_ab(torch, smi, dev, bcfg, init)
+    rows["gemma2_2b graph ab"] = lm_train_graph_ab(torch, smi, dev, bcfg, init)
     del init
 
     # ---- step 1 on the card against the CPU (f32, 2 layers)
@@ -3395,6 +3647,7 @@ def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
                 raise AssertionError(f"{arch} step {i + 1}: loss {loss}")
         peak = torch.cuda.max_memory_allocated()
         routes = no_launches(f"{arch} training step")
+        check_train_captured(step, 1, f"{arch} training step 2")  # step 1 is the key's eager warm-up
         want = {"ssd"} if fspec.family == "mamba2" else {"flash_attention"} if whisper else {"flash_attention", "ssd"}
         if set(routes) != want:
             raise AssertionError(f"{arch}: plain routes taken {routes}, want {sorted(want)}")
@@ -3402,8 +3655,8 @@ def lm_train_phase(torch, smi, dev, attn_ops, ssd_ops):
                       "ms": times, "peak_bytes": peak, "grad_routes": routes}
         print(f"{arch} train step ({param_count(params):,} parameters, full width, {depth} layers"
               f"{' each side, frames (2, ' + str(fcfg.n_frames) + ', ' + str(fcfg.d_model) + ')' if whisper else ''}, "
-              f"2 x {S} tokens, bf16, remat): step 2 loss {loss:.4f} (finite, new tokens), {times[1]:.2f} ms (step 1 "
-              f"{times[0]:.2f}), peak {peak / 2**30:.2f} GiB; kernel launches 0, plain routes a step "
+              f"2 x {S} tokens, bf16, remat): step 2 loss {loss:.4f} (finite, new tokens), {times[1]:.2f} ms (its "
+              f"capture and first replay; step 1, the eager warm-up, {times[0]:.2f}), peak {peak / 2**30:.2f} GiB; kernel launches 0, plain routes a step "
               f"{json.dumps(routes)} | {smi}")
         del params, state, step, batches, batch
         torch.cuda.empty_cache()
@@ -3611,6 +3864,8 @@ def dist_phase(torch, smi, dev):
         with tempfile.TemporaryDirectory() as d:
             whole = run_train_loop(step, *fresh(), feed(batches), LoopConfig(8, f"{d}/a", ckpt_every=4, log_every=1),
                                    log_fn=quiet.append, shardings=shardings)
+            # the captured step's buffers, which the next runs of the step take over (trees copied in)
+            unbroken = [t.to_local().clone() for t in tree_leaves((whole.params, whole.opt_state))]
             run_train_loop(step, *fresh(), feed(batches[:4]), LoopConfig(4, f"{d}/b", ckpt_every=4, log_every=1),
                            log_fn=quiet.append, shardings=shardings)
             manifest = Path(f"{d}/b/MANIFEST").read_text().split()
@@ -3620,8 +3875,8 @@ def dist_phase(torch, smi, dev):
                                      shardings=shardings)
         placed = all(isinstance(t, DTensor) and t.placements == s.placements
                      for t, s in zip(tree_leaves(resumed.params), tree_leaves(sh.params)))
-        same = all(torch.equal(a.to_local(), b.to_local()) for a, b in
-                   zip(tree_leaves((whole.params, whole.opt_state)), tree_leaves((resumed.params, resumed.opt_state))))
+        same = all(torch.equal(a, b.to_local()) for a, b in
+                   zip(unbroken, tree_leaves((resumed.params, resumed.opt_state))))
         hist = [h["loss"] for h in whole.history[4:]] == [h["loss"] for h in resumed.history]
     finally:
         dist.destroy_process_group()

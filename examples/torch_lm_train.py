@@ -6,7 +6,9 @@ then restore the last checkpoint and check it against the trained state.
   PYTHONPATH=src python examples/torch_lm_train.py --arch gemma2_2b --full   # ~100M params
   PYTHONPATH=src python examples/torch_lm_train.py --device cpu --steps 30 --seq 32
 
-Runs on the CUDA card unless ``--device`` names another device. ``--full``
+Runs on the CUDA card unless ``--device`` names another device; there the
+step is one CUDA graph, replayed at every step after the second
+(``make_lm_train_step(..., donate=True)``). ``--full``
 builds a ~100M-parameter variant of the same family. The checkpoints go to
 ``--ckpt-dir``, or to a temporary directory that is removed at the end.
 """

@@ -749,7 +749,8 @@ def mesh_ops():
 def on_mesh(step):
     """``step`` over DTensor trees (``jax.jit`` with ``in_shardings``), its
     ops under ``mesh_ops``; the returned metrics are whole tensors on every
-    rank."""
+    rank (outside a captured step's graph). A step's ``graphs`` stay
+    readable on the result, and its ``eager`` is put on the mesh too."""
 
     @functools.wraps(step)
     def run(params, opt_state, batch, *args):
@@ -757,6 +758,8 @@ def on_mesh(step):
             params, opt_state, metrics = step(params, opt_state, batch, *args)
             return params, opt_state, tree_map(to_global, metrics)
 
+    if hasattr(step, "eager"):
+        run.eager = on_mesh(step.eager)
     return run
 
 

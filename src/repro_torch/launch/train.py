@@ -17,6 +17,9 @@ Activations are fp32 under ``--smoke`` and bf16 otherwise; parameters and
 the optimizer state stay fp32, are placed by ``dist.train_shardings`` as
 DTensors, and the step writes its update into their buffers
 (``AdamW.update_``, as the JAX launcher donates them to its jitted step).
+On the card the step is one CUDA graph, captured at the second step and
+replayed at every step after (``make_lm_train_step(..., donate=True)``);
+on the CPU it runs eagerly.
 Each rank draws its batches from the stream seeded by its index along the
 mesh's data-like dims and keeps its own rows of them (``shard_batch``).
 ``main(argv)`` returns the loop's ``LoopState``, and destroys the process

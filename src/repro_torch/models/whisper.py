@@ -27,8 +27,9 @@ from ..nn.module import checkpointed, layer, tree_map, tree_stack, unstack
 def sinusoid_pos(n: int, d: int, device=None):
     pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
-    # log(10000) and its quotient in f32, as the JAX package computes them
-    inv = torch.exp(-dim * (torch.log(torch.tensor(10000.0, device=device)) / (d // 2 - 1)))
+    # log(10000) and its quotient in f32, as the JAX package computes them; the
+    # constant filled on the device (a copy from the host has no place in a CUDA graph)
+    inv = torch.exp(-dim * (torch.log(torch.full((), 10000.0, device=device)) / (d // 2 - 1)))
     ang = pos * inv
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)  # (n, d)
 

@@ -8,10 +8,11 @@ CPU tensor, as JAX's count is int32. ``update`` computes the bias
 corrections and a schedule's learning rate (0-d float32) where the count
 it is given lives. A count on the host keeps them there, and they reach
 the card's kernels as scalars, so an eager update on the card never waits
-for the host. The captured vision train steps
-(``steps._captured_train_step``) hand ``update`` the count as a 0-d int32
-buffer on the card, filled at each call, so those scalars are computed in
-the CUDA graph from each call's count, not baked into it at the capture.
+for the host. The captured train steps (``steps._captured_train_step``,
+``steps._donated_train_step``) hand ``update`` / ``update_`` the count as
+a 0-d int32 buffer on the card, filled at each call, so those scalars are
+computed in the CUDA graph from each call's count, not baked into it at
+the capture.
 Updates run under ``torch.no_grad()`` and
 return new tensors; ``AdamW.update_`` is the same update written into the
 buffers it is given (the JAX launcher donates them to its jitted step).

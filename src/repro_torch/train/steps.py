@@ -23,6 +23,11 @@ step is captured into a CUDA graph and replayed for every token
 loop calls it un-jitted).
 ``make_lm_train_step`` differentiates the models, whose attention and SSD
 modules then take the plain ops on both devices (``kernels.grad_route``).
+With ``donate=True`` on the card it is what the JAX launcher's ``jax.jit``
+with ``donate_argnums=(0, 1)`` compiles: one CUDA graph per key, replayed
+at every call and written into the parameter and optimizer-state buffers
+it was captured on (``_donated_train_step``), on plain tensors and on
+DTensors alike.
 """
 from __future__ import annotations
 
@@ -114,14 +119,24 @@ def make_yolo_train_step(model, optimizer):
 
 def _is_count(x) -> bool:
     """Whether an optimizer-state leaf is a step count as the optimizers'
-    ``init`` makes it: a 0-d integer tensor on the host."""
-    return x.device.type == "cpu" and x.ndim == 0 and not x.dtype.is_floating_point
+    ``init`` makes it: a plain 0-d integer tensor on the host (a count
+    placed on a mesh is a DTensor, updated where it lies)."""
+    return x.device.type == "cpu" and x.ndim == 0 and not x.dtype.is_floating_point and not hasattr(x, "placements")
 
 
 def _counts_on(opt_state, device):
     """``opt_state`` with each count (``_is_count``) a 0-d tensor of its
     value on ``device`` (a fill, no copy from the host)."""
     return tree_map(lambda x: torch.full((), int(x), dtype=x.dtype, device=device) if _is_count(x) else x, opt_state)
+
+
+def _counts_eager(run, params, opt_state, batch, *args):
+    """``run`` on ``opt_state`` with its counts put on the batch's device
+    (``_counts_on``), each count handed back as the host's ``count + 1``: a
+    captured step's ops without the graph."""
+    new_params, new_state, metrics = run(params, _counts_on(opt_state, tree_leaves(batch)[0].device), batch, *args)
+    leaves = [x + 1 if _is_count(x) else y for x, y in zip(tree_leaves(opt_state), tree_leaves(new_state))]
+    return new_params, tree_unflatten(new_state, leaves), metrics
 
 
 @dataclasses.dataclass(eq=False)
@@ -158,10 +173,7 @@ def _captured_train_step(run, what):
     graphs: dict[tuple, _TrainGraph] = {}
 
     def eager(params, opt_state, batch, generator=None):
-        new_params, new_state, metrics = run(params, _counts_on(opt_state, tree_leaves(batch)[0].device), batch,
-                                             generator)
-        leaves = [x + 1 if _is_count(x) else y for x, y in zip(tree_leaves(opt_state), tree_leaves(new_state))]
-        return new_params, tree_unflatten(new_state, leaves), metrics
+        return _counts_eager(run, params, opt_state, batch, generator)
 
     def step(params, opt_state, batch, generator=None):
         device = tree_leaves(batch)[0].device
@@ -214,6 +226,150 @@ def _capture_train(run, what, trees, generator, stream, device) -> _TrainGraph:
     return captured
 
 
+def _local(t):
+    """A DTensor's local tensor (on one rank, its whole buffer); any other
+    tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _leaf_key(t):
+    """What a captured graph depends on in a leaf: its shape, dtype,
+    strides, device and, for a DTensor, its mesh and placements."""
+    placed = (t.device_mesh, tuple(t.placements)) if hasattr(t, "placements") else None
+    return tuple(t.shape), t.dtype, t.stride(), t.device, placed
+
+
+def _donated_train_step(run, what):
+    """``run(params, opt_state, batch)`` (a train step that writes its
+    update into the ``params`` and ``opt_state`` it is given, as
+    ``AdamW.update_`` does) as the JAX launcher's ``jax.jit(...,
+    donate_argnums=(0, 1))`` compiles it.
+
+    On CUDA tensors, plain or DTensors, one ``torch.cuda.CUDAGraph`` per
+    key: the trees' structure, each leaf's shape, dtype, strides, device
+    and DTensor placements (``_leaf_key``) and the current stream; not the
+    leaves' addresses. The first call of a key is its warm-up: ``run`` on
+    the side stream, eagerly, on the caller's trees (``_counts_eager``:
+    first-use work, library handles and DTensor's sharding propagation of
+    every op, stay out of the graph), returned as the step it is. The
+    second call captures ``run`` on the trees it is given, after the
+    warm-up's cached blocks are released (``torch.cuda.empty_cache``), into
+    a memory pool of its own; a capture executes nothing, so it advances no
+    state, and that call's replay is its step. The graph writes into those
+    trees' buffers (each optimizer count too, where ``run`` replaces it), so
+    they are the graph's buffers from then on and every call returns them,
+    in new containers. Each call fills each optimizer count that is a
+    host tensor (``_is_count``) into its 0-d buffer on the card (no sync),
+    so the bias corrections and the schedule run on the call's own count,
+    and hands it back as the host's ``count + 1``; it copies the batch into
+    the graph's batch buffers and every other leaf in only where it does
+    not already lie in the graph's buffer (a tree restored from a
+    checkpoint: copied in once, and the caller's tree is consumed), then
+    replays and clones the metrics out. So a loop that passes back what it
+    got copies only the batch in and the metrics out, and each key holds
+    one graph and one pool, as ``jax.jit`` keeps one executable a shape.
+
+    A capture that fails raises, naming ``what``; nothing falls back to
+    eager. On CPU and ``meta`` tensors ``run`` is called as it is.
+    ``step.graphs`` holds the captures by key; ``step.eager`` is the
+    captured ops without the graph (``_counts_eager``)."""
+    graphs: dict[tuple, _TrainGraph] = {}
+    warmed: set[tuple] = set()
+
+    def eager(params, opt_state, batch):
+        return _counts_eager(run, params, opt_state, batch)
+
+    def step(params, opt_state, batch):
+        device = tree_leaves(batch)[0].device
+        if not pipeline.captures_on(device):
+            return run(params, opt_state, batch)
+        trees = (params, opt_state, batch)
+        leaves = tree_leaves(trees)
+        stream = pipeline._current_stream(device)
+        key = (tree_def(trees), tuple(_leaf_key(t) for t in leaves), None if stream is None else stream.cuda_stream)
+        g = graphs.get(key)
+        if g is None:
+            if key not in warmed:
+                warmed.add(key)
+                return _warm_up(eager, what, trees, stream, device)
+            g = graphs[key] = _capture_donated(run, what, trees, stream, device)
+        n_trees = len(tree_leaves(trees[:2]))
+        with torch.no_grad():
+            for i, (buf, x) in enumerate(zip(g.static_in, leaves)):
+                if i in g.counts:
+                    buf.fill_(int(x))
+                else:
+                    buf, x = _local(buf), _local(x)
+                    if i >= n_trees or buf.data_ptr() != x.data_ptr():
+                        buf.copy_(x)
+        g.graph.replay()
+        g.replays += 1
+        out = [leaves[i] + 1 if i in g.counts else b for i, b in enumerate(g.static_in[:n_trees])]
+        new_params, new_state = tree_unflatten(trees[:2], out)
+        return new_params, new_state, tree_map(torch.clone, g.static_out)
+
+    step.graphs, step.eager = graphs, eager
+    return step
+
+
+def _written_back(given, returned, what):
+    """``returned`` (the params and optimizer state a donating step
+    returned) as the leaves of ``given`` (the ones it was handed): a leaf
+    it returns anew (``update_``'s count) is copied into the leaf it
+    replaces; a count on the host is returned as it is."""
+    if tree_def(returned) != tree_def(given):
+        raise ValueError(f"{what}: the returned params and optimizer state are not trees of the ones given")
+    out = []
+    with torch.no_grad():
+        for a, b in zip(tree_leaves(given), tree_leaves(returned)):
+            if b is not a and not _is_count(a):
+                a.copy_(b)
+                b = a
+            out.append(b)
+    return tree_unflatten(given, out)
+
+
+def _warm_up(eager, what, trees, stream, device):
+    """``eager(*trees)`` on the side stream, waited for, written into the
+    trees it was given (``_written_back``)."""
+    side = pipeline._capture_stream(device)
+    if side is not None:
+        side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        *new, metrics = eager(*trees)
+        new = _written_back(trees[:2], tuple(new), what)
+    if side is not None:
+        torch.cuda.synchronize(device)  # its outputs were made on the side stream: done before the caller's ops
+    return (*new, metrics)
+
+
+def _capture_donated(run, what, trees, stream, device) -> _TrainGraph:
+    """``run`` on ``trees``' params and optimizer state (each host count a
+    0-d buffer on ``device``) and on batch buffers of the batch's shapes,
+    captured into a CUDA graph with a pool of its own. The graph writes
+    each leaf ``run`` returns anew (the count) into the leaf it replaces,
+    so every output but the metrics lies in an input buffer."""
+    params, opt_state, batch = trees
+    inputs = tree_leaves((params, _counts_on(opt_state, device), tree_map(torch.clone, batch)))
+    n_params = len(tree_leaves(params))
+    counts = frozenset(n_params + j for j, x in enumerate(tree_leaves(opt_state)) if _is_count(x))
+
+    def body():
+        # containers made anew: ``run`` may replace a leaf in the ones it is given (``update_``'s count)
+        *new, metrics = run(*tree_unflatten(trees, inputs))
+        _written_back(tree_unflatten(trees[:2], inputs), tuple(new), what)
+        return metrics
+
+    torch.cuda.empty_cache()  # the warm-up's cached blocks: the graph's pool takes the step's working set
+    side = pipeline._capture_stream(device)
+    if side is not None:
+        side.wait_stream(stream)
+    graph, metrics, pool_graphs = pipeline.capture_graph(stream, side, body, what, owner=object())
+    captured = _TrainGraph(graph, None, inputs, metrics, [], {}, counts=counts)
+    pool_graphs.add(captured)
+    return captured
+
+
 # ---------------------------------------------------------------------------
 # LM family
 # ---------------------------------------------------------------------------
@@ -233,10 +389,19 @@ def make_lm_train_step(model, optimizer, aux_weight: float = 0.01, n_micro: int 
     activations of one micro-batch are alive at a time: micro-batch ``j``
     takes rows ``j, j + n_micro, ...`` (the rows the JAX package's
     ``reshape(B // n, n, ...)`` then ``moveaxis`` gives it); loss, parts and
-    gradients are summed in fp32 and scaled by ``1 / n_micro``. ``donate``
-    updates through ``optimizer.update_``, into the buffers of the
-    parameters and optimizer state it is given (the JAX launcher's
-    ``donate_argnums=(0, 1)``): the caller's trees are overwritten."""
+    gradients are summed in fp32 and scaled by ``1 / n_micro``.
+
+    ``donate`` updates through ``optimizer.update_``, into the buffers of
+    the parameters and optimizer state it is given (the JAX launcher's
+    ``jax.jit`` with ``donate_argnums=(0, 1)``): the caller's trees are
+    overwritten. On the card, plain tensors or the DTensors ``on_mesh``
+    hands it, that step is one CUDA graph per key (``_donated_train_step``:
+    the first call of a key runs eagerly as its warm-up, the second
+    captures, every call after replays, written into the trees the capture
+    was given, which every call returns); ``step.eager`` is its ops
+    uncaptured and ``step.graphs`` its captures. On the CPU and on ``meta``
+    tensors it runs eagerly. Without ``donate`` the step returns new
+    trees and runs eagerly on every device."""
 
     def grad_fn(params, batch):
         p = _trainable(params)
@@ -275,7 +440,11 @@ def make_lm_train_step(model, optimizer, aux_weight: float = 0.01, n_micro: int 
         params, opt_state, opt_info = update(grads, opt_state, params)
         return params, opt_state, {"loss": loss, "ce": ce, "aux": aux, **opt_info}
 
-    return train_step
+    return _donated_train_step(train_step, f"the train step of {_name(model)}") if donate else train_step
+
+
+def _name(model) -> str:
+    return getattr(getattr(model, "cfg", None), "name", type(model).__name__)
 
 
 # ---------------------------------------------------------------------------
@@ -348,9 +517,9 @@ def _capture_decode(model, params, token, caches, stream) -> CapturedGraph:
         position = torch.zeros((), dtype=torch.int32, device=dev)
         # warm-up on scratch caches: first-use work stays out of the graph
         model.decode_step(params, static_token, tree_map(torch.zeros_like, caches), position)
-    name = getattr(getattr(model, "cfg", None), "name", type(model).__name__)
     graph, (logits, _), pool_graphs = capture_graph(
-        stream, side, lambda: model.decode_step(params, static_token, caches, position), f"the decode step of {name}")
+        stream, side, lambda: model.decode_step(params, static_token, caches, position),
+        f"the decode step of {_name(model)}")
     captured = CapturedGraph(graph, params, [static_token, position], logits, [], {})
     pool_graphs.add(captured)
     return captured

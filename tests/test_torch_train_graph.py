@@ -4,9 +4,11 @@ graph per key and replayed at every call, as the JAX callers' ``jax.jit``
 compiles the JAX steps (donating nothing).
 
 On the CPU a stand-in for ``core.pipeline.capture_graph`` drives the capture
-logic (``fake_card``): its "graph" reruns the captured function on the same
-input buffers and writes into the same output buffers, as a replay does,
-and leaves the registered generators as it found them, as a capture does.
+logic (``fake_card``, shared with ``test_torch_lm_train_graph.py``): its
+"graph" reruns the captured function on the same input buffers and writes
+into the same output buffers, as a replay does, and its capture leaves the
+tensors the function wrote and the registered generators as it found them,
+as a capture does.
 Held here, for Pix2Pix (img 32, base 8, padded and cropping, with the
 dropout generator and without it) and YOLOv8n (img 64) over 3 steps with
 each optimizer of ``test_torch_train.py`` (two of them with a
@@ -102,15 +104,48 @@ class FakeGraph:
             HostCopies.replaying = False
 
 
+class Untouched(TorchDispatchMode):
+    """While entered, keeps a copy of each tensor an op writes (an argument
+    its schema marks written) from before its first write; ``restore``
+    writes the copies back, the latest first. So the ops run, yet leave
+    what existed before them as a capture leaves it: a capture executes
+    nothing."""
+
+    def __init__(self):
+        super().__init__()
+        self.saved = {}  # id -> (tensor, its value before the first write); holding it keeps the id unique
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for i, a in enumerate(func._schema.arguments):
+            if a.alias_info is None or not a.alias_info.is_write:
+                continue
+            value = args[i] if i < len(args) else kwargs.get(a.name)
+            for t in value if isinstance(value, (list, tuple)) else (value,):
+                if isinstance(t, torch.Tensor) and id(t) not in self.saved:
+                    self.saved[id(t)] = (t, t.clone())
+        return func(*args, **kwargs)
+
+    def restore(self):
+        with torch.no_grad():
+            for t, before in reversed(list(self.saved.values())):
+                t.copy_(before)
+        self.saved.clear()
+
+
 @pytest.fixture
 def fake_card(monkeypatch):
     """Steps on the CPU run as the stand-in graphs; yields the list of
-    captures made, by what they name."""
+    captures made, by what they name. The stand-in's capture runs the
+    function once for its outputs and leaves every tensor it wrote, and
+    the registered generators, as they were (``Untouched``)."""
     captures = []
 
     def capture_graph(stream, side, run, what, owner=None, generators=()):
         states = [g.get_state() for g in generators]
-        out = run()
+        with Untouched() as untouched:
+            out = run()
+        untouched.restore()
         for g, s in zip(generators, states):  # a capture draws nothing from them
             g.set_state(s)
         captures.append(what)
