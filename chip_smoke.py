@@ -144,7 +144,12 @@ toolkit, this
    ``torch.profiler``, and decode against ``__call__`` (atol 5e-2, rtol
    1e-2; the captured step, caches written in place; gemma2-2b through
    ``greedy_generate``, then
-   gemma2-2b's decode A/B at batch 2, as in 10);
+   gemma2-2b's decode A/B at batch 2, as in 10; then its requests on fresh
+   caches (``decode_requests_ab``: 4 requests, each on caches dropped after
+   it, captures, warm-ups, live graphs and memory after each, tokens
+   bit-equal to the eager step's) and its step on a one-rank NCCL mesh,
+   eager and captured in turns (``decode_mesh_ab``: ms a step, idle share
+   under ``torch.profiler``, tokens bit-equal));
 12. trains LMs on the card (``lm_train_phase``): gemma2-2b at full width
    and depth (2,614,341,888 parameters, seed 0) through
    ``repro_torch.launch.train.main`` (a one-rank NCCL mesh: DTensor
@@ -1470,10 +1475,11 @@ def hymba_prefill_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, 
 
 def check_captured(step, count, what):
     """``step`` (``make_lm_decode_step``'s) ran ``count`` decode steps as
-    replays of one CUDA graph, captured once for the one cache set."""
-    replays = [g.replays for g in step.graphs.values()]
-    if replays != [count]:
-        raise AssertionError(f"{what}: {len(replays)} CUDA graphs replayed {replays} times, not one {count} times")
+    replays of one CUDA graph, captured once for the one cache set (its
+    counts outlive the graph, which goes with the caches)."""
+    if (step.captures, step.replays) != (1, count):
+        raise AssertionError(f"{what}: {step.captures} CUDA graphs captured and {step.replays} replays, not one "
+                             f"replayed {count} times")
 
 
 def hymba_decode_phase(torch, smi, dev, cfg, params):
@@ -1602,10 +1608,10 @@ def decode_ab(torch, smi, arch, cfg, params, dev):
     cache set and replayed for every token), both writing into the loop's
     caches, in turns (eager, captured, captured, eager, after a short
     warm-up of each): the generated tokens bit-equal in all four; each
-    captured run replays a graph at every step and captures at most one
-    (caches of one size come back at one address, so the capture at the
-    warm-up run's first step serves them all: its warm-up on scratch
-    caches, then the capture, timed and its peak taken). Each run's first
+    captured run replays a graph at every step and captures one at its
+    first step (the previous run's caches, and the graph on them, are
+    gone); only the warm-up run's capture warms up first, on scratch
+    caches (its first step timed and its peak taken). Each run's first
     step is taken before its clock starts and reported apart; then ms per step over the other steps (host clock,
     synchronised at its end) and the peak memory of those steps
     (``max_memory_allocated`` from a reset after the first, the weights and
@@ -1630,29 +1636,16 @@ def decode_ab(torch, smi, arch, cfg, params, dev):
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, DECODE_AB_PROMPT)).astype(np.int32)).to(dev)
 
     def loop(step, w, caches, count, first=None):
-        tok, outs = prompt[:, :1], []
-        for t in range(count):
-            logits, caches = step(w, tok, caches, t)
-            if t + 1 < DECODE_AB_PROMPT:
-                tok = prompt[:, t + 1 : t + 2]
-            else:
-                tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
-                outs.append(tok)
-            if t == 0 and first is not None:
-                first()
-        return torch.cat(outs, 1) if outs else None
+        return _decode_loop(torch, step, w, prompt, caches, count, first)
 
     def new_caches():
         return model.init_caches(B, DECODE_AB_LEN, dtype=torch.bfloat16, device=dev)
-
-    def replays():
-        return sum(g.replays for g in captured.graphs.values())
 
     def run(name, count=n):
         # handed over, not held here: the loop's caches are the only reference
         caches = [new_caches()]
         cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(caches[0]))
-        graphs, replayed = len(captured.graphs), replays()
+        graphs, replayed = captured.captures, captured.replays
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         mark = {"t0": time.perf_counter()}
@@ -1667,9 +1660,9 @@ def decode_ab(torch, smi, arch, cfg, params, dev):
         tokens = loop(steps[name], weights, caches.pop(), count, first)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - mark["t1"]) * 1e3 / (count - 1)
-        if name == "captured" and (replays() - replayed != count or len(captured.graphs) - graphs > 1):
-            raise AssertionError(f"{arch} decode A/B: the captured run replayed {replays() - replayed} of {count} "
-                                 f"steps with {len(captured.graphs) - graphs} new captures")
+        if name == "captured" and (captured.replays - replayed != count or captured.captures - graphs != 1):
+            raise AssertionError(f"{arch} decode A/B: the captured run replayed {captured.replays - replayed} of "
+                                 f"{count} steps with {captured.captures - graphs} new captures")
         return {"step": name, "ms_per_step": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
                 "first_step_s": mark["first_s"], "first_step_peak_bytes": mark["first_peak"],
                 "cache_bytes": cache_bytes, "tokens": tokens}
@@ -1691,7 +1684,7 @@ def decode_ab(torch, smi, arch, cfg, params, dev):
         raise AssertionError(f"{arch} decode A/B: the eager and captured steps generated different tokens")
     for r in runs + list(warm.values()):
         r.pop("tokens")
-    graphs = len(captured.graphs)
+    graphs, warm_ups = captured.captures, len(captured.warmed)
     del weights, steps, captured
     torch.cuda.empty_cache()
     by = {k: [r for r in runs if r["step"] == k] for k in ("eager", "captured")}
@@ -1703,8 +1696,8 @@ def decode_ab(torch, smi, arch, cfg, params, dev):
           "replay a step) " + ", ".join(f"{r['ms_per_step']:.2f}" for r in by["captured"]) + " ms per step, peak "
           + ", ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in by["captured"]) + " GiB (host clock, steps 2 to "
           f"{n}); first step eager " + ", ".join(f"{r['first_step_s']:.2f}" for r in by["eager"]) + " s, captured "
-          + ", ".join(f"{r['first_step_s']:.2f}" for r in by["captured"]) + f" s; {graphs} graph(s) captured in "
-          f"all (caches at a captured address replay its graph), the capture at the warm-up run's first step: "
+          + ", ".join(f"{r['first_step_s']:.2f}" for r in by["captured"]) + f" s; {graphs} graphs captured in "
+          f"all, one a run, {warm_ups} warm-up, at the warm-up run's first step with its capture: "
           f"{warm['captured']['first_step_s']:.2f} s, peak {warm['captured']['first_step_peak_bytes'] / 2**30:.2f} "
           f"GiB (its scratch caches included) | {smi}")
     for name, split in splits.items():
@@ -1725,6 +1718,237 @@ def decode_ab(torch, smi, arch, cfg, params, dev):
         raise AssertionError(f"{arch} decode: the step copies a cache: {copies.rows}")
     return {"runs": runs, "splits": splits, "graphs": graphs,
             "capture": {k: warm["captured"][k] for k in ("first_step_s", "first_step_peak_bytes")}}
+
+
+# gemma2-2b's decode over fresh caches per request (``decode_requests_ab``)
+# and on a one-rank NCCL mesh (``decode_mesh_ab``), at ``decode_ab``'s size
+# (batch 2, bf16, 32768 slots, 8 prompt + 8 greedy tokens). Predicted before
+# the first run: each request's first step captures (the first also warms
+# up, on scratch caches), no graph outlives its request, allocated memory
+# after each request is what it was before it; a step of the requests as
+# fast as decode_ab's captured step (12.23-12.36 ms, PR 28 run 5); the
+# captured mesh step within 5% of it, its idle share under 10% (the eager
+# mesh step's 89-91%)
+DECODE_REQUESTS = 4
+DECODE_REQUESTS_PREDICTED_MS = (12.0, 12.6)
+DECODE_MESH_RUNS = ("eager", "captured", "captured", "eager")
+DECODE_MESH_PREDICTED_RATIO = 1.05
+DECODE_MESH_PREDICTED_IDLE = 0.10
+
+
+def _decode_loop(torch, step, weights, prompt, caches, count, first=None):
+    """``count`` decode calls of ``step`` on ``caches``, the prompt fed
+    first, then greedy tokens; the greedy tokens (each a DTensor's local
+    tensor on a mesh). ``first()`` is called after the first step."""
+    tok, outs, n_prompt = prompt[:, :1], [], prompt.shape[1]
+    for t in range(count):
+        logits, caches = step(weights, tok, caches, t)
+        if t + 1 < n_prompt:
+            tok = prompt[:, t + 1 : t + 2]
+        else:
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(prompt.dtype)
+            outs.append(tok.to_local() if hasattr(tok, "to_local") else tok)
+        if t == 0 and first is not None:
+            first()
+    return torch.cat(outs, 1) if outs else None
+
+
+def decode_requests_ab(torch, smi, cfg, params, dev):
+    """gemma2-2b (``cfg`` at full width and depth, ``params`` cast to bf16,
+    bf16 activations and caches of ``DECODE_AB_LEN`` slots, batch
+    ``DECODE_AB_B``) serving ``DECODE_REQUESTS`` requests of
+    ``DECODE_AB_PROMPT`` prompt and ``DECODE_AB_NEW`` greedy tokens through
+    one ``make_lm_decode_step`` step, each request on fresh caches dropped
+    after it and with a prompt of its own; before each, the eager
+    ``model.decode_step`` serves the same prompt on caches of its own.
+    After each request: the step's captures, warm-ups (signatures warmed),
+    live graphs, allocated and reserved GiB; its first step (the capture,
+    with the signature's warm-up at the first request, and the first
+    replay) in ms, then ms a step over the others (host clock, synchronised
+    at the end). Fails unless every request's tokens are bit-equal to the
+    eager step's, the requests took one capture each and one warm-up in
+    all, no graph outlives its request, and the allocated memory after each
+    request is what it was before it. Returns the rows."""
+    import numpy as np
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn.module import tree_map
+    from repro_torch.train import make_lm_decode_step
+
+    B, n = DECODE_AB_B["gemma2_2b"], DECODE_AB_PROMPT + DECODE_AB_NEW - 1
+    model = build_model(dataclasses.replace(cfg, act_dtype=torch.bfloat16))
+    weights = tree_map(lambda t: t.to(torch.bfloat16), params)
+    eager, step = torch.no_grad()(model.decode_step), make_lm_decode_step(model)
+    rng = np.random.default_rng(7)
+
+    def serve(decode, prompt, marks):
+        # the request's caches live in this call only
+        caches = model.init_caches(B, DECODE_AB_LEN, dtype=torch.bfloat16, device=dev)
+
+        def first():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        marks.append(time.perf_counter())
+        tokens = _decode_loop(torch, decode, weights, prompt, caches, n, first)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return tokens
+
+    rows = []
+    with torch.no_grad():
+        for r in range(DECODE_REQUESTS):
+            prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, DECODE_AB_PROMPT)).astype(np.int32)).to(dev)
+            want = serve(eager, prompt, [])
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            marks = []
+            got = serve(step, prompt, marks)
+            same = tuple(got.shape) == (B, DECODE_AB_NEW) and torch.equal(got, want)
+            del got
+            torch.cuda.synchronize()
+            row = {"request": r, "bit_equal": same, "captures": step.captures, "warm_ups": len(step.warmed),
+                   "live_graphs": len(step.graphs), "allocated_before_gib": before / 2**30,
+                   "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+                   "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+                   "first_step_ms": (marks[1] - marks[0]) * 1e3, "ms_per_step": (marks[2] - marks[1]) * 1e3 / (n - 1)}
+            row["allocated_added_bytes"] = torch.cuda.memory_allocated() - before
+            rows.append(row)
+            print(f"  request {r}: tokens {'bit-equal to the eager step' if same else 'DIFFER'}; captures "
+                  f"{row['captures']}, warm-ups {row['warm_ups']}, live graphs {row['live_graphs']}; allocated "
+                  f"{row['allocated_gib']:.3f} GiB ({row['allocated_added_bytes']:+d} bytes against before the "
+                  f"request), reserved {row['reserved_gib']:.2f} GiB; first step (capture"
+                  f"{' after the warm-up' if r == 0 else ''} and first replay) {row['first_step_ms']:.1f} ms, then "
+                  f"{row['ms_per_step']:.2f} ms a step | {smi}")
+    replays = step.replays
+    del weights, step, eager
+    torch.cuda.empty_cache()
+    ms = [r["ms_per_step"] for r in rows]
+    lo, hi = DECODE_REQUESTS_PREDICTED_MS
+    print(f"decode requests, gemma2-2b full width and depth, batch {B}, bf16 caches of {DECODE_AB_LEN} slots, "
+          f"{DECODE_REQUESTS} requests of {DECODE_AB_PROMPT} + {DECODE_AB_NEW} tokens, each on fresh caches dropped "
+          f"after it: {rows[-1]['captures']} captures, {rows[-1]['warm_ups']} warm-up, {replays} replays; "
+          f"ms a step " + ", ".join(f"{v:.2f}" for v in ms) + f" (predicted {lo:g}-{hi:g}); first steps "
+          + ", ".join(f"{r['first_step_ms']:.1f}" for r in rows) + f" ms | {smi}")
+    bad = [r["request"] for r in rows if not r["bit_equal"]]
+    if bad:
+        raise AssertionError(f"decode requests {bad}: the captured step's tokens differ from the eager step's")
+    if [r["captures"] for r in rows] != list(range(1, DECODE_REQUESTS + 1)) or rows[-1]["warm_ups"] != 1:
+        raise AssertionError(f"decode requests: captures {[r['captures'] for r in rows]}, warm-ups "
+                             f"{rows[-1]['warm_ups']}; want one capture a request and one warm-up")
+    if any(r["live_graphs"] or r["allocated_added_bytes"] for r in rows):
+        raise AssertionError("decode requests: a graph or its memory outlived its request: "
+                             + json.dumps([{k: r[k] for k in ("live_graphs", "allocated_added_bytes")} for r in rows]))
+    return {"requests": rows, "ms_per_step": sum(ms) / len(ms), "fastest_ms": min(ms), "replays": replays}
+
+
+def decode_mesh_ab(torch, smi, cfg, params, dev, plain_ms):
+    """gemma2-2b's decode as in ``decode_requests_ab`` on a one-rank NCCL
+    mesh (``launch.mesh.make_host_mesh``): the weights placed by
+    ``dist.tree_shardings_shaped``, each run's fresh caches by
+    ``dist.cache_shardings``, the prompt by ``dist.batch_sharding`` (every
+    DTensor replicated, holding the plain tensor), the ops under
+    ``dist.mesh_ops``. The eager ``model.decode_step`` and
+    ``make_lm_decode_step``'s captured step in ``DECODE_MESH_RUNS`` order,
+    after a warm run of each (DTensor's sharding propagation; the captured
+    step's signature warm-up, an eager call, then its capture), each run on
+    fresh caches from the same prompt: ms a step over steps 2 to n (host
+    clock, synchronised at the end; the first step, a capture in the
+    captured runs, before the clock), the tokens bit-equal in all four; then
+    ``DECODE_AB_SPLIT`` steps of each under ``torch.profiler``
+    (``time_split``: device busy, idle share). ``plain_ms``: the plain
+    captured step's ms a step (its fastest request); the ratio takes the
+    fastest captured run, since the card's spread moves whole runs (the
+    plain captured step 11.1-11.2 or 12.2-12.4 ms a step within one process
+    on an H100 80GB HBM3 at 700 W). Fails unless the tokens are bit-equal
+    and each captured run captured once and replayed every step. Returns
+    the rows."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import build_model
+    from repro_torch.dist import batch_sharding, cache_shardings, default_rules, device_put, mesh_ops
+    from repro_torch.dist import tree_shardings_shaped
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.nn.module import tree_map
+    from repro_torch.train import make_lm_decode_step
+
+    B, n = DECODE_AB_B["gemma2_2b"], DECODE_AB_PROMPT + DECODE_AB_NEW - 1
+    model = build_model(dataclasses.replace(cfg, act_dtype=torch.bfloat16))
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (B, DECODE_AB_PROMPT)).astype(np.int32)).to(dev)
+    mesh = make_host_mesh(1, device=dev)
+    try:
+        rules = default_rules(False, mesh.mesh_dim_names)
+        weights = tree_map(lambda t: t.to(torch.bfloat16), params)
+        weights = device_put(weights, tree_shardings_shaped(mesh, model.axes(), weights, rules))
+        prompt = device_put(prompt, batch_sharding(mesh, B, rules))
+        steps = {"eager": torch.no_grad()(model.decode_step), "captured": make_lm_decode_step(model)}
+        captured = steps["captured"]
+
+        def new_caches():
+            caches = model.init_caches(B, DECODE_AB_LEN, dtype=torch.bfloat16, device=dev)
+            return device_put(caches, cache_shardings(mesh, caches, rules))
+
+        def run(name, count=n):
+            captures, replays, mark = captured.captures, captured.replays, {}
+
+            def first():
+                torch.cuda.synchronize()
+                mark["t1"] = time.perf_counter()
+
+            tokens = _decode_loop(torch, steps[name], weights, prompt, new_caches(), count, first)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - mark["t1"]) * 1e3 / (count - 1)
+            return {"step": name, "ms_per_step": ms, "tokens": tokens,
+                    "captures": captured.captures - captures, "replays": captured.replays - replays}
+
+        with torch.no_grad(), mesh_ops():
+            warm = [run(name, 3) for name in steps]
+            runs = [run(name) for name in DECODE_MESH_RUNS]
+            splits = {"eager": time_split(torch, lambda w, c: _decode_loop(torch, steps["eager"], w, prompt, c,
+                                                                          DECODE_AB_SPLIT), weights, new_caches())}
+            caches = new_caches()
+            _decode_loop(torch, captured, weights, prompt, caches, 1)  # its capture, outside the profile
+            splits["captured"] = time_split(torch, lambda w, c: _decode_loop(torch, captured, w, prompt, c,
+                                                                            DECODE_AB_SPLIT), weights, caches)
+            del caches
+        del weights, steps, captured
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    first = runs[0]["tokens"]
+    same = tuple(first.shape) == (B, DECODE_AB_NEW) and all(torch.equal(r["tokens"], first) for r in runs)
+    for r in runs + warm:
+        r.pop("tokens")
+    by = {k: [r["ms_per_step"] for r in runs if r["step"] == k] for k in ("eager", "captured")}
+    ratio = min(by["captured"]) / plain_ms
+    print(f"decode on a one-rank NCCL mesh, gemma2-2b full width and depth, batch {B}, bf16 caches of "
+          f"{DECODE_AB_LEN} slots, runs {' / '.join(DECODE_MESH_RUNS)}: ms a step eager "
+          + ", ".join(f"{v:.2f}" for v in by["eager"]) + ", captured " + ", ".join(f"{v:.2f}" for v in by["captured"])
+          + f" (the fastest {ratio:.3f}x the plain captured step's fastest, {plain_ms:.2f}, predicted <= "
+          f"{DECODE_MESH_PREDICTED_RATIO:g}); "
+          f"tokens {'bit-equal in all four runs' if same else 'DIFFER'}; the warm run's captures / replays "
+          f"{warm[1]['captures']} / {warm[1]['replays']} of 3 calls (call 1 the warm-up), each captured run's "
+          + ", ".join(f"{r['captures']} / {r['replays']}" for r in runs if r["step"] == "captured") + f" | {smi}")
+    for name, split in splits.items():
+        if not split:
+            print(f"  mesh {name}: not measured (the profiler recorded no kernel)")
+            continue
+        kinds = ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(split["by_kind"].items(), key=lambda kv: -kv[1]))
+        note = f" (predicted under {100 * DECODE_MESH_PREDICTED_IDLE:g}%)" if name == "captured" else ""
+        print(f"  mesh {name}, {DECODE_AB_SPLIT} steps under torch.profiler: {split['wall_ms']:.2f} ms wall, device "
+              f"busy {split['busy_ms']:.2f} ms ({kinds}), idle {100 * split['idle_share']:.1f}%{note}; largest other "
+              "kernels: " + "; ".join(f"{k} {v:.2f}" for k, v in split["top_other"]) + f" | {smi}")
+    if not same:
+        raise AssertionError("gemma2-2b mesh decode: the eager and captured steps generated different tokens")
+    bad = [(r["captures"], r["replays"]) for r in runs if r["step"] == "captured" and (r["captures"], r["replays"])
+           != (1, n)]
+    if bad or (warm[1]["captures"], warm[1]["replays"]) != (1, 2):
+        raise AssertionError(f"gemma2-2b mesh decode: captures / replays {bad or warm[1]}, want the warm-up then "
+                             f"one capture a run and a replay a step")
+    return {"runs": runs, "warm": warm, "ratio_to_plain": ratio, "bit_equal": same,
+            "splits": {k: {m: v for m, v in sp.items() if m not in ("backward", "other")} for k, sp in splits.items()}}
 
 
 def distinct_calls(bench, cs, names=REPLACES):
@@ -2904,6 +3128,9 @@ def lm_zoo_phase(torch, smi, dev, lm_bench, attn_ops, attn_ref, ssd_ops, ssd_ref
             if arch in DECODE_AB_B:
                 torch.cuda.empty_cache()
                 row["decode_ab"] = decode_ab(torch, smi, arch, cfg, params, dev)
+            if arch == "gemma2_2b":
+                row["decode_requests_ab"] = requests = decode_requests_ab(torch, smi, cfg, params, dev)
+                row["decode_mesh_ab"] = decode_mesh_ab(torch, smi, cfg, params, dev, requests["fastest_ms"])
         del params
         torch.cuda.empty_cache()
         row["seconds"] = time.perf_counter() - t_arch

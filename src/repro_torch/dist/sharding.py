@@ -544,8 +544,10 @@ def write_at_(x, value, dim: int, index):
     writes into its local block at ``index`` less its block's offset (taken
     over every mesh dim that splits ``dim``), clamped into the block:
     ``value`` where the slot is its own, else the slot's current content,
-    so only the rank that holds the slot changes its block. The write adds
-    no collective. A partial ``x`` has no block to write into: it raises."""
+    so only the rank that holds the slot changes its block; a rank whose
+    block holds the whole of ``dim`` (no mesh dim splits it) writes
+    ``value`` at ``index`` as the plain ``x`` does. The write adds no
+    collective. A partial ``x`` has no block to write into: it raises."""
     from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
@@ -562,6 +564,9 @@ def write_at_(x, value, dim: int, index):
     value = value.redistribute(mesh, [Replicate() if pl.is_shard(dim) else pl for pl in x.placements])
     shape, offset = compute_local_shape_and_global_offset(x.shape, mesh, x.placements)
     if shape[dim] == 0:
+        return x
+    if shape[dim] == x.shape[dim]:
+        x.to_local().index_copy_(dim, index, value.to_local())
         return x
     local, here = x.to_local(), index - offset[dim]
     mine = (here >= 0) & (here < shape[dim])
@@ -738,10 +743,17 @@ def mesh_ops():
     """The models' ops over DTensors: the plain tensors a model makes for
     itself (positions, rope tables, masks) join the DTensors as replicated
     values (``implicit_replication``), and the ops DTensor lacks have their
-    strategies. An op that DTensor has no sharding strategy for raises."""
+    strategies. An op that DTensor has no sharding strategy for raises.
+    Inside another ``mesh_ops`` it leaves the outer one's replication on
+    when it exits, where ``implicit_replication`` would turn it off (a
+    captured decode step enters its own under its caller's)."""
+    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
 
     _register_strategies()
+    if DTensor._op_dispatcher._allow_implicit_replication:
+        yield
+        return
     with implicit_replication():
         yield
 

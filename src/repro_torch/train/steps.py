@@ -18,9 +18,10 @@ The LM entry points serve and train every LM family (``TransformerLM``,
 names). ``make_lm_prefill``, ``make_lm_decode_step`` and
 ``greedy_generate`` run under ``torch.no_grad()`` where the parameters
 are: on the card their prefills go through the LM kernels, and the decode
-step is captured into a CUDA graph and replayed for every token
-(``greedy_generate`` calls the model's step eagerly, as the JAX package's
-loop calls it un-jitted).
+step, on plain tensors or DTensors, is captured into a CUDA graph per
+signature and set of buffers and replayed for every token, as ``jax.jit``
+caches it (``_DecodeStep``; ``greedy_generate`` calls the model's step
+eagerly, as the JAX package's loop calls it un-jitted).
 ``make_lm_train_step`` differentiates the models, whose attention and SSD
 modules then take the plain ops on both devices (``kernels.grad_route``).
 With ``donate=True`` on the card it is what the JAX launcher's ``jax.jit``
@@ -31,12 +32,15 @@ DTensors alike.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import weakref
 
 import torch
 
 from ..core import pipeline
-from ..core.pipeline import CapturedGraph, _capture_stream, capture_graph
+from ..core.pipeline import CapturedGraph
+from ..dist import mesh_ops
 from ..nn.module import tree_def, tree_leaves, tree_map, tree_unflatten
 from .losses import chunked_cross_entropy, pix2pix_d_loss, pix2pix_g_loss, yolo_loss
 
@@ -232,11 +236,15 @@ def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
 
+def _placed(t):
+    """A DTensor's mesh and placements; None for any other tensor or value."""
+    return (t.device_mesh, tuple(t.placements)) if hasattr(t, "placements") else None
+
+
 def _leaf_key(t):
     """What a captured graph depends on in a leaf: its shape, dtype,
     strides, device and, for a DTensor, its mesh and placements."""
-    placed = (t.device_mesh, tuple(t.placements)) if hasattr(t, "placements") else None
-    return tuple(t.shape), t.dtype, t.stride(), t.device, placed
+    return tuple(t.shape), t.dtype, t.stride(), t.device, _placed(t)
 
 
 def _donated_train_step(run, what):
@@ -329,18 +337,28 @@ def _written_back(given, returned, what):
     return tree_unflatten(given, out)
 
 
-def _warm_up(eager, what, trees, stream, device):
-    """``eager(*trees)`` on the side stream, waited for, written into the
-    trees it was given (``_written_back``)."""
+def _on_side_stream(run, stream, device):
+    """``run()`` on the device's side stream, where the captures run (so
+    its first-use work serves them), waited for."""
     side = pipeline._capture_stream(device)
     if side is not None:
         side.wait_stream(stream)
     with torch.cuda.stream(side):
-        *new, metrics = eager(*trees)
-        new = _written_back(trees[:2], tuple(new), what)
+        out = run()
     if side is not None:
         torch.cuda.synchronize(device)  # its outputs were made on the side stream: done before the caller's ops
-    return (*new, metrics)
+    return out
+
+
+def _warm_up(eager, what, trees, stream, device):
+    """``eager(*trees)`` on the side stream, waited for, written into the
+    trees it was given (``_written_back``)."""
+
+    def run():
+        *new, metrics = eager(*trees)
+        return (*_written_back(trees[:2], tuple(new), what), metrics)
+
+    return _on_side_stream(run, stream, device)
 
 
 def _capture_donated(run, what, trees, stream, device) -> _TrainGraph:
@@ -459,70 +477,135 @@ def make_lm_decode_step(model):
     ``donate_argnums=(2,)``): the caller's caches are overwritten; a caller
     that keeps them passes a clone.
 
-    On plain CUDA tensors the step is what the JAX launcher's ``jax.jit``
-    compiles once for every ``t``: ``model.decode_step`` captured into a
-    ``torch.cuda.CUDAGraph`` once per key (the parameters' identity, the
-    token's shape and dtype, the caches' tree, each cache leaf's shape,
-    dtype, strides and address, and the current stream) and replayed for
-    every token. Each call fills the graph's token and 0-d int32 position
-    buffers on the device (no host sync), replays the graph and returns a
-    clone of its logits with the caller's own caches: the graph writes into
-    them, so a decode loop that passes back the caches it got replays one
-    graph and nothing copies a cache in or out; caches at another address
-    get a capture of their own. Before a capture the step runs once eagerly
-    on a side stream on scratch caches of the same shapes (a run on the
-    caller's would advance its SSM states a second time). A capture that
-    fails raises, naming the model; nothing falls back to eager. On CPU
-    tensors (the caller asked for the CPU), ``meta`` tensors and DTensors
-    (the mesh step is not captured) the step runs ``model.decode_step``
-    eagerly. ``step.graphs`` holds the captures by key."""
-    from torch.distributed.tensor import DTensor
+    On the card, plain tensors or DTensors, the step is what the JAX
+    launcher's ``jax.jit`` caches: ``model.decode_step`` captured into a
+    ``torch.cuda.CUDAGraph`` and replayed for every token (``_DecodeStep``).
+    A graph is keyed by its signature (the token's shape, dtype and
+    placements, whether ``t`` is a DTensor, the params' and caches' trees,
+    each of their leaves' shape, dtype, strides, device and placements,
+    the current stream) and by the addresses of the params and cache
+    leaves it reads; not by the params' container. It is dropped, its pool
+    released, when any leaf it was captured on is collected. On CPU
+    tensors (the caller asked for the CPU) and ``meta`` tensors the step
+    runs ``model.decode_step`` as it is."""
+    return _DecodeStep(model)
 
-    graphs: dict[tuple, CapturedGraph] = {}
+
+@dataclasses.dataclass(eq=False)
+class _DecodeGraph(CapturedGraph):
+    finalizers: list = dataclasses.field(default_factory=list)  # one a leaf it reads, detached when it is dropped
+
+
+def _drop_decode_graph(step_ref, key):
+    """A leaf the graph of ``key`` reads was collected: the graph leaves
+    its step's ``graphs``, and its pool is released with it."""
+    step = step_ref()
+    g = None if step is None else step.graphs.pop(key, None)
+    if g is not None:
+        for f in g.finalizers:
+            f.detach()
+
+
+class _DecodeStep:
+    """``make_lm_decode_step``'s step. On the card, each call fills the
+    graph's token and 0-d int32 position buffers on the device (no host
+    sync), replays the graph and returns a clone of its logits with the
+    caller's own caches, which the graph writes: a decode loop that passes
+    back the caches it got replays one graph and copies no cache.
+
+    The first call of a signature is its warm-up, which keeps first-use work
+    (library handles, and on DTensors the sharding propagation of every op)
+    out of the graphs: on plain tensors ``model.decode_step`` runs once on
+    scratch caches of the same shapes (a run on the caller's would advance
+    their SSM states a second time) and the call goes on to capture; on
+    DTensors (their ops under ``dist.mesh_ops``) the call is the step
+    itself, run eagerly on the caller's trees, and the next call captures.
+    A capture at new addresses of a warmed signature (caches allocated per
+    request, a replaced params leaf) captures directly; a capture executes
+    nothing. A graph holds weak references only to the leaves it reads, and
+    a finalizer on each drops the graph when the leaf is collected, so a
+    server holds at most one graph per live cache set. A capture that fails
+    raises, naming the model; nothing falls back to eager. ``graphs``: the
+    live captures by key; ``warmed``: the signatures warmed up;
+    ``captures`` and ``replays``: counts since the step was made."""
+
+    def __init__(self, model):
+        self.model, self.what = model, f"the decode step of {_name(model)}"
+        self.graphs: dict[tuple, _DecodeGraph] = {}
+        self.warmed: set[tuple] = set()
+        self.captures = self.replays = 0
 
     @torch.no_grad()
-    def decode_step(params, token, caches, t):
-        leaves = tree_leaves(caches)
-        if token.device.type != "cuda" or any(isinstance(a, DTensor) for a in (token, *leaves)):
-            return model.decode_step(params, token, caches, t)
-        stream = torch.cuda.current_stream(token.device)
-        key = (id(params), tuple(token.shape), token.dtype, tree_def(caches),
-               tuple((tuple(a.shape), a.dtype, a.stride(), a.data_ptr()) for a in leaves), stream.cuda_stream)
-        g = graphs.get(key)
-        if g is None:
-            g = graphs[key] = _capture_decode(model, params, token, caches, stream)
-        static_token, position = g.static_in
-        static_token.copy_(token)
-        if isinstance(t, torch.Tensor):
-            position.copy_(t)
-        else:
-            position.fill_(t)
-        g.graph.replay()
-        g.replays += 1
-        return g.static_out.clone(), caches
+    def __call__(self, params, token, caches, t):
+        device = token.device
+        if not pipeline.captures_on(device):
+            return self.model.decode_step(params, token, caches, t)
+        leaves = tree_leaves((params, caches))
+        on_mesh = any(hasattr(a, "placements") for a in (token, *leaves))
+        with mesh_ops() if on_mesh else contextlib.nullcontext():
+            stream = pipeline._current_stream(device)
+            sig = (tuple(token.shape), token.dtype, _placed(token), _placed(t),
+                   tree_def(params), tree_def(caches), tuple(_leaf_key(a) for a in leaves),
+                   None if stream is None else stream.cuda_stream)
+            key = (sig, tuple(_local(a).data_ptr() for a in leaves))
+            g = self.graphs.get(key)
+            if g is None:
+                warm = sig not in self.warmed
+                self.warmed.add(sig)
+                if warm and on_mesh:  # the step itself, eagerly on the caller's trees
+                    return _on_side_stream(lambda: self.model.decode_step(params, token, caches, t), stream, device)
+                g = self._capture(params, token, caches, t, leaves, stream, device, key, warm)
+            _local(g.static_in[0]).copy_(_local(token))
+            position = _local(g.static_in[1])
+            if isinstance(t, torch.Tensor):
+                position.copy_(_local(t))
+            else:
+                position.fill_(t)
+            g.graph.replay()
+            g.replays += 1
+            self.replays += 1
+            return g.static_out.clone(), caches
 
-    decode_step.graphs = graphs
-    return decode_step
+    def _capture(self, params, token, caches, t, leaves, stream, device, key, warm) -> _DecodeGraph:
+        """``model.decode_step`` on static token and position buffers and
+        the caller's params and caches, captured into a CUDA graph of
+        ``stream``'s pool (after the scratch warm-up where ``warm``), with
+        a finalizer on each of those leaves that drops it."""
+        model, what = self.model, self.what
+        side = pipeline._capture_stream(device)
+        if side is not None:
+            side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            static_token = token.clone()
+            if hasattr(t, "placements"):
+                position = torch.zeros_like(t, dtype=torch.int32)
+            else:
+                position = torch.zeros((), dtype=torch.int32, device=device)
+            if warm:
+                model.decode_step(params, static_token, tree_map(torch.zeros_like, caches), position)
+        p_skel, c_skel = tree_map(lambda _: None, params), tree_map(lambda _: None, caches)
+        refs, n = [weakref.ref(a) for a in leaves], len(tree_leaves(params))
 
+        def body():
+            # the leaves through weak references: what the capture closes over keeps no cache alive
+            given = [r() for r in refs]
+            logits, out = model.decode_step(tree_unflatten(p_skel, given[:n]), static_token,
+                                            tree_unflatten(c_skel, given[n:]), position)
+            if any(a is not b for a, b in zip(tree_leaves(out), given[n:], strict=True)):
+                raise ValueError(f"{what}: the step returned other caches than those it was given")
+            return logits
 
-def _capture_decode(model, params, token, caches, stream) -> CapturedGraph:
-    """``model.decode_step`` on static token and position buffers and the
-    caller's ``caches``, captured into a CUDA graph of ``stream``'s pool
-    (``CapturedSegment._capture``'s protocol)."""
-    dev = token.device
-    side = _capture_stream(dev)
-    side.wait_stream(stream)
-    with torch.cuda.stream(side):
-        static_token = token.clone()
-        position = torch.zeros((), dtype=torch.int32, device=dev)
-        # warm-up on scratch caches: first-use work stays out of the graph
-        model.decode_step(params, static_token, tree_map(torch.zeros_like, caches), position)
-    graph, (logits, _), pool_graphs = capture_graph(
-        stream, side, lambda: model.decode_step(params, static_token, caches, position),
-        f"the decode step of {_name(model)}")
-    captured = CapturedGraph(graph, params, [static_token, position], logits, [], {})
-    pool_graphs.add(captured)
-    return captured
+        graph, logits, pool_graphs = pipeline.capture_graph(stream, side, body, what)
+        captured = _DecodeGraph(graph, None, [static_token, position], logits, [], {})
+        pool_graphs.add(captured)
+        me = weakref.ref(self)
+        for a in leaves:
+            f = weakref.finalize(a, _drop_decode_graph, me, key)
+            f.atexit = False  # at exit there is nothing left to release
+            captured.finalizers.append(f)
+        self.graphs[key] = captured
+        self.captures += 1
+        return captured
 
 
 def make_lm_prefill(model):
